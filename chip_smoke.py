@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (graph_kmer_index_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+1. Prints the card (nvidia-smi name and power limit); with no CUDA device
+   it raises: there is no CPU path.
+2. Builds the hand-written kernels K1 (csrc/sliding_hash.cu) and K2
+   (csrc/packed_lookup.cu) from the checkout's sources.
+3. Holds K1 against its plain PyTorch twin on the card (bit-exact).
+4. Drives the read-mapping path at chromosome scale, all from --seed: a
+   150 Mb genome with planted repeats (a poly-A run, 0.5% copied
+   segments) is hashed by K1 into an index of every window (node =
+   position // 32 + 1); 1,000,000 reads of 150 bp with 1% substitutions
+   are written as FASTA, parsed, hashed on the card (forward and reverse
+   complement) and mapped to node counts and membership through K2.
+5. Checks the counts and membership against an independent
+   sort-and-search join on the card, 1,000 reads' hashes against numpy,
+   and that K1 and K2 were launched by step 4.
+6. Holds K1 and K2 against their plain twins (bit-exact) on exactly the
+   main path's inputs: K1 on the genome, K2 in counts and membership
+   mode on every read segment, which between them hold queries of all
+   three classes (final, deep, ultra). Then K2 on 2^22 queries, half of
+   them hits and 1% of them in the poly-A run's ultra bucket.
+7. Times both kernels against their twins at the main path's shapes
+   (CUDA events, plain / kernel / kernel / plain), and raises unless
+   the timed outputs of kernel and twin are equal.
+8. With ``--profile PATH``: torch.profiler over a second call of
+   map_kmers and of has_kmers; a summary line each on stdout, the
+   operator tables in PATH.
+
+Any failed check raises before the last line, which is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from graph_kmer_index_tpu_torch import KmerIndex, hash_fasta_file  # noqa: E402
+from graph_kmer_index_tpu_torch.hashing import (  # noqa: E402
+    kmer_hashes_to_reverse_complement_hash, sliding_window_hashes)
+from graph_kmer_index_tpu_torch.ops import _kernels  # noqa: E402
+from graph_kmer_index_tpu_torch.ops import encode, lookup  # noqa: E402
+from graph_kmer_index_tpu_torch.utils import synthetic  # noqa: E402
+
+K1_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_hash.cu"
+K2_SOURCE = "graph_kmer_index_tpu_torch/csrc/packed_lookup.cu"
+K1_REPLACES = "graph_kmer_index_tpu/ops/encode.py:133"
+K2_REPLACES = "graph_kmer_index_tpu/ops/lookup.py:349"
+K = 31
+READ_LEN = 150
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class Stages:
+    """Host-clock seconds per stage, each ending in a device synchronise."""
+
+    def __init__(self, dev, card):
+        self.dev, self.card = dev, card
+
+    def run(self, name, fn, *args, **kw):
+        sync(self.dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync(self.dev)
+        self.report(name, time.perf_counter() - t0)
+        return out
+
+    def report(self, name, seconds, extra=""):
+        print(f"stage {name}: {seconds:.6f} s{extra} [{self.card}]",
+              flush=True)
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def assert_equal(got, want, what: str) -> int:
+    """Raise unless a kernel's output (a tensor or a tuple of them) equals
+    its twin's bit for bit; returns the max abs difference (0)."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = 0
+    for a, b in zip(got, want, strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: kernel != plain")
+        err = max(err, max_abs_diff(a, b))
+    return err
+
+
+def check_k1(dev, n_random: int, gen) -> int:
+    """K1 == plain twin, bit-exact; returns the max abs difference."""
+    err = 0
+    cases = [(n_random, k) for k in (1, 15, 16, 17, 31)]
+    cases += [(n, k) for n in (1, 31, 1_000_003) for k in (1, 17, 31)]
+    for n, k in cases:
+        seq = torch.randint(0, 4, (n,), dtype=torch.int8, device=dev,
+                            generator=gen)
+        err = max(err, assert_equal(encode.sliding_hashes(seq, k),
+                                    encode.sliding_hashes_plain(seq, k),
+                                    f"K1 at n={n} k={k}"))
+    print(f"K1 == plain (bit-exact) on {len(cases)} cases, "
+          f"incl. {n_random} bases x k in (1,15,16,17,31)", flush=True)
+    return err
+
+
+def main_path(dev, card, args, workdir):
+    """The read-mapping path at the requested scale; returns its state."""
+    st = Stages(dev, card)
+    rng = np.random.default_rng(args.seed)
+    k = K
+
+    t0 = time.perf_counter()
+    genome, poly_a = synthetic.random_genome(args.genome_bases, rng)
+    st.report("genome (host set-up)", time.perf_counter() - t0,
+              f", {len(genome)} bases, poly-A (start, length) {poly_a}")
+    genome_dev = st.run("genome upload", lambda: torch.from_numpy(genome)
+                        .to(dev))
+    n_win = len(genome) - k + 1
+    rows = st.run("genome hash (K1)",
+                  lambda: encode.sliding_hashes(genome_dev, k)[:n_win])
+    nodes = torch.arange(n_win, device=dev) // 32 + 1
+    index = KmerIndex.from_arrays(rows, nodes, lookup.internal_modulo(n_win),
+                                  dev)
+    tables = st.run("table build", index.device_index.packed)
+    n_nodes = index.max_node_id() + 1
+    print(f"table: {n_win} rows, {n_nodes} nodes, modulo2 "
+          f"{tables.modulo2}, records {tables.records.numel() * 4} bytes, "
+          f"max bucket {tables.max_sz}, deep rows {tables.deep_frac:.6f}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    reads = synthetic.sample_reads(genome, args.reads, READ_LEN, rng,
+                                   poly_a)
+    fasta = Path(workdir) / "reads.fa"
+    synthetic.write_fasta(fasta, reads)
+    st.report("reads (host set-up)", time.perf_counter() - t0,
+              f", {args.reads} x {READ_LEN} bp, "
+              f"{fasta.stat().st_size} bytes of FASTA")
+
+    stages = {}
+    t0 = time.perf_counter()
+    read_kmers = hash_fasta_file(str(fasta), k, device=dev,
+                                 include_reverse_complements=True,
+                                 stage_seconds=stages)
+    total = time.perf_counter() - t0
+    n_q = len(read_kmers)
+    for name in ("parse", "upload", "hash"):
+        st.report(f"reads {name}", stages.get(name, 0.0))
+    st.report("hash_fasta_file total", total,
+              f", {n_q} query k-mers, {n_q / total:.1f} k-mers/s")
+    t0 = time.perf_counter()
+    counts = index.map_kmers(read_kmers, n_nodes)
+    sync(dev)
+    t_map = time.perf_counter() - t0
+    st.report("map_kmers", t_map, f", {n_q / t_map:.1f} queries/s")
+    t0 = time.perf_counter()
+    member = index.has_kmers(read_kmers)
+    sync(dev)
+    t_has = time.perf_counter() - t0
+    st.report("has_kmers", t_has, f", {n_q / t_has:.1f} queries/s")
+    return dict(genome=genome_dev, index=index, tables=tables,
+                n_nodes=n_nodes, reads=reads, read_kmers=read_kmers,
+                counts=counts, member=member)
+
+
+def check_results(dev, state, k, n_sample, rng):
+    """Counts and membership against an independent join on the device;
+    sampled reads' hashes against numpy."""
+    index, read_kmers = state["index"], state["read_kmers"]
+    queries = torch.cat(read_kmers.segments)
+    n_nodes = state["n_nodes"]
+    counts = torch.from_numpy(state["counts"]).to(dev)
+    member = torch.from_numpy(state["member"]).to(dev)
+    if counts.shape != (n_nodes,) or member.shape != queries.shape:
+        raise AssertionError("result shapes differ from the contract")
+
+    # counts: every table row adds the number of queries equal to its k-mer
+    uq, qc = torch.unique(queries, return_counts=True)
+    pos = torch.searchsorted(uq, index.kmers).clamp(max=uq.shape[0] - 1)
+    match = uq[pos] == index.kmers
+    ref = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
+    ref.index_add_(0, index.nodes[match], qc[pos[match]])
+    del uq, qc, pos, match
+    if not torch.equal(counts, ref):
+        raise AssertionError(f"counts differ from the join at "
+                             f"{int((counts != ref).sum())} nodes")
+    # membership: searchsorted in the sorted unique table k-mers
+    tu = torch.unique(index.kmers)
+    pos = torch.searchsorted(tu, queries).clamp(max=tu.shape[0] - 1)
+    ref_member = tu[pos] == queries
+    if not torch.equal(member, ref_member):
+        raise AssertionError(f"membership differs from the join at "
+                             f"{int((member != ref_member).sum())} queries")
+    print(f"counts == join ({int(counts.sum())} hits over {n_nodes} nodes); "
+          f"membership == join ({int(member.sum())} of {queries.shape[0]} "
+          "query k-mers present)", flush=True)
+
+    reads = state["reads"]
+    n_reads, read_len = reads.shape
+    per = read_len - k + 1
+    n_fw = n_reads * per
+    sample = rng.choice(n_reads, size=min(n_sample, n_reads), replace=False)
+    for r in sample.tolist():
+        fw = sliding_window_hashes(reads[r], k)
+        rc = kmer_hashes_to_reverse_complement_hash(fw, k)
+        got_fw = queries[r * per:(r + 1) * per].cpu().numpy().view(np.uint64)
+        got_rc = (queries[n_fw + r * per:n_fw + (r + 1) * per]
+                  .cpu().numpy().view(np.uint64))
+        if not (np.array_equal(got_fw, fw) and np.array_equal(got_rc, rc)):
+            raise AssertionError(f"read {r}: device hashes != numpy")
+    print(f"read hashes == numpy on {len(sample)} sampled reads "
+          "(forward and reverse complement)", flush=True)
+    hit_share = float(member[:n_fw].float().mean()) if n_fw else 0.0
+    print(f"forward k-mers found in the index: {hit_share:.6f}", flush=True)
+    if not 0.5 < hit_share <= 1.0:
+        raise AssertionError(f"implausible forward hit share {hit_share}")
+
+
+def check_at_main_shapes(state, k) -> tuple[int, int]:
+    """K1 and K2 against their twins, bit-exact, on exactly the inputs the
+    main path gave them: K1 on the genome, K2 in counts and membership
+    mode on every read segment. Fails unless the segments held queries of
+    all three classes. Returns the max abs differences (K1, K2)."""
+    genome = state["genome"]
+    k1_err = assert_equal(encode.sliding_hashes(genome, k),
+                          encode.sliding_hashes_plain(genome, k),
+                          "K1 on the main path's genome")
+    t, n_nodes = state["tables"], state["n_nodes"]
+    k2_err, cls = 0, torch.zeros(3, dtype=torch.int64, device=genome.device)
+    segments = state["read_kmers"].segments
+    for seg in segments:
+        n = seg.shape[0]
+        for mode in (n_nodes, None):
+            got = lookup.packed_decode(t.records, seg, n, t.modulo2, mode)
+            k2_err = max(k2_err, assert_equal(
+                got, lookup.packed_decode_plain(t.records, seg, n,
+                                                t.modulo2, mode),
+                f"K2 ({'counts' if mode else 'membership'}) on a main-path "
+                f"segment of {n} queries"))
+            if mode is not None:
+                cls += torch.bincount(got[1].to(torch.int64), minlength=3)
+            del got
+    cls = cls.tolist()
+    if min(cls) == 0:
+        raise AssertionError(f"main-path queries miss a class: final/deep/"
+                             f"ultra {cls}")
+    print(f"K1 == plain (bit-exact) on the main path's {genome.shape[0]} "
+          f"bases; K2 == plain (bit-exact), counts and membership, on its "
+          f"{len(segments)} read segments ({sum(cls)} queries, classes "
+          f"final/deep/ultra {cls})", flush=True)
+    return k1_err, k2_err
+
+
+def check_k2(dev, state, n_q, gen) -> int:
+    """K2 == plain twin (counts, membership and classes) on n_q queries:
+    half of them table hits, 1% rows of buckets deeper than SCAN_CAP
+    (the planted poly-A run's), so that every class is compared."""
+    t = state["tables"]
+    n_nodes = state["n_nodes"]
+    _, run = torch.unique_consecutive(t.ks % t.modulo2, return_counts=True)
+    ultra_rows = t.ks[torch.repeat_interleave(run > lookup.SCAN_CAP, run)]
+    del run
+    half, n_ultra = n_q // 2, n_q // 100
+    if ultra_rows.shape[0] == 0:
+        raise AssertionError("the table has no bucket deeper than SCAN_CAP")
+    q = torch.cat([
+        t.ks[torch.randint(0, t.ks.shape[0], (half,), device=dev,
+                           generator=gen)],
+        ultra_rows[torch.randint(0, ultra_rows.shape[0], (n_ultra,),
+                                 device=dev, generator=gen)],
+        torch.randint(0, 1 << 62, (n_q - half - n_ultra,), device=dev,
+                      generator=gen)])
+    q = q[torch.randperm(n_q, device=dev, generator=gen)]
+    err = 0
+    for mode in (n_nodes, None):
+        got = lookup.packed_decode(t.records, q, n_q, t.modulo2, mode)
+        err = max(err, assert_equal(
+            got, lookup.packed_decode_plain(t.records, q, n_q, t.modulo2,
+                                            mode),
+            f"K2 ({'counts' if mode else 'membership'}) on {n_q} queries"))
+        if mode is not None:
+            cls = torch.bincount(got[1].to(torch.int64), minlength=3).tolist()
+    if min(cls) == 0:
+        raise AssertionError(f"K2 check misses a class: final/deep/ultra {cls}")
+    print(f"K2 == plain (bit-exact) on {n_q} queries, counts and membership; "
+          f"classes final/deep/ultra {cls}", flush=True)
+    return err
+
+
+def time_pair(dev, kernel, plain, reps, what):
+    """CUDA-event means over ``reps`` calls, in the order plain, kernel,
+    kernel, plain: (kernel ms, plain ms, the four means, max abs error).
+    Raises unless the kernel's output equals the twin's on these inputs."""
+    outs = []
+
+    def once(fn):
+        outs.append(fn())  # warm-up, kept for the comparison
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / reps
+
+    p1 = once(plain)
+    k1 = once(kernel)
+    err = assert_equal(outs.pop(), outs.pop(), what)
+    k2, p2 = once(kernel), once(plain)
+    err = max(err, assert_equal(outs[0], outs[1], what))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2), err
+
+
+def time_kernels(dev, card, state, k):
+    """Both kernels against their twins on the main path's inputs, each
+    timed output also compared: K1 on the genome, K2 (counts) on the
+    largest read segment. Returns (ms, plain ms, max abs error) each."""
+    genome = state["genome"]
+    genome_bases = genome.shape[0]
+    k1_ms, k1_plain, raw1, k1_err = time_pair(
+        dev, lambda: encode.sliding_hashes(genome, k),
+        lambda: encode.sliding_hashes_plain(genome, k), 3,
+        "K1 timed on the genome")
+    t = state["tables"]
+    seg = max(state["read_kmers"].segments, key=lambda s: s.shape[0])
+    n_nodes = state["n_nodes"]
+    k2_ms, k2_plain, raw2, k2_err = time_pair(
+        dev,
+        lambda: lookup.packed_decode(t.records, seg, seg.shape[0],
+                                     t.modulo2, n_nodes),
+        lambda: lookup.packed_decode_plain(t.records, seg, seg.shape[0],
+                                           t.modulo2, n_nodes), 3,
+        "K2 (counts) timed on the largest read segment")
+    cls = torch.bincount(
+        lookup.packed_decode(t.records, seg, seg.shape[0], t.modulo2,
+                             n_nodes)[1].to(torch.int64), minlength=3)
+    print(f"timing K1 sliding_hash, {genome_bases} bases k={k}: kernel "
+          f"{k1_ms:.6f} ms ({genome_bases / k1_ms / 1e6:.3f} G bases/s), "
+          f"plain {k1_plain:.6f} ms, outputs equal; kernel,kernel,plain,"
+          f"plain = {raw1} [{card}]", flush=True)
+    print(f"timing K2 packed_decode (counts), {seg.shape[0]} queries: "
+          f"kernel {k2_ms:.6f} ms "
+          f"({seg.shape[0] / k2_ms / 1e6:.3f} G queries/s), plain "
+          f"{k2_plain:.6f} ms, outputs equal; kernel,kernel,plain,plain = "
+          f"{raw2}; classes final/deep/ultra {cls.tolist()} [{card}]",
+          flush=True)
+    return (k1_ms, k1_plain, k1_err), (k2_ms, k2_plain, k2_err)
+
+
+def _device_us(event) -> float:
+    us = getattr(event, "self_device_time_total", None)
+    return us if us is not None else event.self_cuda_time_total
+
+
+def profile_lookup(dev, card, state, path):
+    """torch.profiler over a second call of map_kmers and of has_kmers:
+    per call, one summary line on stdout (host wall ms, the profiler's
+    self-time totals, and the K2, nonzero and device-to-host copy rows)
+    and the operator table in ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    index, read_kmers = state["index"], state["read_kmers"]
+    calls = {"map_kmers": lambda: index.map_kmers(read_kmers,
+                                                  state["n_nodes"]),
+             "has_kmers": lambda: index.has_kmers(read_kmers)}
+    with open(path, "w") as out:
+        for name, fn in calls.items():
+            sync(dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                sync(dev)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            table = prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=30,
+                max_name_column_width=60)
+            out.write(f"== {name}: wall {wall_ms:.3f} ms [{card}]\n{table}\n")
+            totals = [line.strip() for line in table.splitlines()
+                      if line.startswith("Self ") and "time total" in line]
+            rows = [f"{e.key[:40]!r} x{e.count} {_device_us(e):.1f} us"
+                    for e in prof.key_averages()
+                    if "packed_decode" in e.key or e.key == "aten::nonzero"
+                    or e.key.startswith("Memcpy DtoH")]
+            print(f"profile {name}: wall {wall_ms:.3f} ms; "
+                  f"{'; '.join(totals)}; self device time: "
+                  f"{', '.join(rows)} [{card}]", flush=True)
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--genome-bases", type=int, default=150_000_000)
+    p.add_argument("--reads", type=int, default=1_000_000)
+    p.add_argument("--profile", metavar="PATH",
+                   help="profile a second map_kmers and has_kmers call; "
+                        "write the operator tables to PATH")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (there is no CPU path)")
+    dev = torch.device("cuda:0")
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    path, seconds = _kernels.build()
+    print(f"built {path.name} in {seconds:.3f} s", flush=True)
+    _kernels.library()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    k1_err = check_k1(dev, 1 << 26, gen)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        state = main_path(dev, card, args, workdir)
+    launches = dict(_kernels.launch_counts)
+    print(f"main path launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes [{card}]",
+          flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "main path")
+
+    check_results(dev, state, K, 1000,
+                  np.random.default_rng(args.seed + 1))
+    main_k1_err, main_k2_err = check_at_main_shapes(state, K)
+    k1_err = max(k1_err, main_k1_err)
+    k2_err = max(main_k2_err, check_k2(dev, state, 1 << 22, gen))
+    (k1_ms, k1_plain, t1_err), (k2_ms, k2_plain, t2_err) = time_kernels(
+        dev, card, state, K)
+    k1_err, k2_err = max(k1_err, t1_err), max(k2_err, t2_err)
+    if args.profile:
+        profile_lookup(dev, card, state, args.profile)
+
+    kernels = [
+        {"name": "sliding_hash", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": launches["sliding_hash"],
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "packed_decode", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": launches["packed_decode"],
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+    ]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

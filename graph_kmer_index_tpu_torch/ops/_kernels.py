@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels (ctypes route).
+
+The sources under ``csrc/`` have a plain C interface, so they compile with
+nvcc alone in seconds (no PyTorch headers) into one shared library under
+``graph_kmer_index_tpu_torch/build/``, named by the sources' content hash.
+The library is built at first use, never at import: the CPU tests import
+every module on a machine without nvcc.
+
+Each wrapper adds one to its entry in ``launch_counts`` where it launches
+its kernel, and nowhere else, so a run can show that its main path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+SOURCES = ("sliding_hash.cu", "packed_lookup.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+launch_counts = {"sliding_hash": 0, "packed_decode": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for name in SOURCES:
+        digest.update((CSRC_DIR / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libgki_torch_{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns (library path, build seconds); raises with nvcc's output if
+    the compile fails."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC_DIR / name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, path)
+    return path, seconds
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.gki_sliding_hash.argtypes = [ptr, ptr, i64, ctypes.c_int, ptr]
+    lib.gki_sliding_hash.restype = ctypes.c_int
+    lib.gki_packed_decode.argtypes = [ptr, ptr, i64, i64, i64, ptr, i64,
+                                      ptr, ptr, ptr]
+    lib.gki_packed_decode.restype = ctypes.c_int
+    return lib
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                      ndim: int) -> None:
+    """Raise on anything a kernel does not take."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

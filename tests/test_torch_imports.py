@@ -1,0 +1,48 @@
+"""The machine with the card has no JAX: the port package and chip_smoke.py
+must import with ``jax`` and ``graph_kmer_index_tpu`` unimportable."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (same process set-up as the other port tests)
+import pytest
+import torch  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "graph_kmer_index_tpu_torch"
+
+_PROBE = """
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["graph_kmer_index_tpu"] = None
+import graph_kmer_index_tpu_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
+print("ok")
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+graph_kmer_index_tpu\b"
+    r"(?!_torch)|from\s+graph_kmer_index_tpu\b(?!_torch))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")
+     if "build" not in p.relative_to(PACKAGE).parts]  # kernel build output
+    + ["chip_smoke.py"]))
+def test_no_jax_import_in_source(path):
+    assert not _FORBIDDEN.search((ROOT / path).read_text()), path
+

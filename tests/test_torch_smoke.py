@@ -1,0 +1,101 @@
+"""chip_smoke.py's phases rehearsed on the CPU at a tiny size (the script's
+entry point itself refuses a machine without CUDA), plus the kernel
+build helpers and the synthetic data generator."""
+import importlib.util
+from pathlib import Path
+
+import jax  # noqa: F401  (same process set-up as the other port tests)
+import numpy as np
+import pytest
+import torch
+
+from graph_kmer_index_tpu_torch.ops import _kernels
+from graph_kmer_index_tpu_torch.read_kmers import encode_block
+from graph_kmer_index_tpu_torch.utils import synthetic
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_smoke_phases_on_cpu(tmp_path, capsys):
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    assert cs.check_k1(dev, 3000, gen) == 0
+    args = cs.parse_args(["--genome-bases", "120000", "--reads", "1500"])
+    state = cs.main_path(dev, "CPU", args, tmp_path)
+    cs.check_results(dev, state, cs.K, 50, np.random.default_rng(1))
+    assert cs.check_at_main_shapes(state, cs.K) == (0, 0)
+    assert cs.check_k2(dev, state, 4096, gen) == 0
+    cs.profile_lookup(dev, "CPU", state, tmp_path / "profile.txt")
+    tables = (tmp_path / "profile.txt").read_text()
+    assert "== map_kmers" in tables and "== has_kmers" in tables
+    out = capsys.readouterr().out
+    assert "counts == join" in out and "membership == join" in out
+    assert "on the main path's 120000 bases" in out
+    # the planted poly-A run is an ultra-deep bucket
+    assert state["tables"].max_sz > 256
+
+
+def test_smoke_refuses_a_machine_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cs = _smoke()
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cs.main([])
+
+
+def test_kernel_library_name_tracks_sources():
+    path = _kernels.library_path()
+    assert path.parent == _kernels.BUILD_DIR
+    assert path.name.startswith("libgki_torch_") and path.suffix == ".so"
+    assert path == _kernels.library_path()
+    for name in _kernels.SOURCES:
+        assert (_kernels.CSRC_DIR / name).exists()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    t = torch.zeros(8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.check_cuda_tensor(t, "seq", torch.int8, 1)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        _kernels.check_launch("sliding_hash", 2)
+
+
+def test_synthetic_genome_and_reads(tmp_path):
+    rng = np.random.default_rng(3)
+    genome, poly_a = synthetic.random_genome(50_000, rng)
+    assert genome.dtype == np.int8 and len(genome) == 50_000
+    start, length = poly_a
+    assert length == synthetic.POLY_A_LEN
+    assert not genome[start:start + length].any()
+    reads = synthetic.sample_reads(genome, 2000, 150, rng, poly_a)
+    assert reads.shape == (2000, 150) and reads.max() <= 3
+    # 1% of the reads overlap the poly-A run
+    assert (reads[:20] == 0).sum(axis=1).min() > 0
+    path = tmp_path / "r.fa"
+    synthetic.write_fasta(path, reads)
+    flat, starts, lens = encode_block(path.read_bytes())
+    assert np.array_equal(flat.reshape(2000, 150), reads)
+    assert np.array_equal(lens, np.full(2000, 150))
+    assert np.array_equal(starts, np.arange(2000) * 150)
+
+
+@pytest.mark.parametrize("attr,function", [
+    ("K1_REPLACES", "def _hash_kernel("),
+    ("K2_REPLACES", "def _decode_group_rows(")])
+def test_smoke_names_the_replaced_code(attr, function):
+    """The file:line each kernel reports as replaced is that function."""
+    path, line = getattr(_smoke(), attr).rsplit(":", 1)
+    source = (ROOT / path).read_text().splitlines()
+    assert source[int(line) - 1].startswith(function)
