@@ -5,8 +5,10 @@
 
 1. Prints the card (nvidia-smi name and power limit); with no CUDA device
    it raises: there is no CPU path.
-2. Builds the hand-written kernels K1 (csrc/sliding_hash.cu) and K2
-   (csrc/packed_lookup.cu) from the checkout's sources.
+2. Builds the hand-written kernels from the checkout's sources (one nvcc
+   per source, all at once): K1 (csrc/sliding_hash.cu), K2
+   (csrc/packed_lookup.cu), K3 (csrc/sliding_pack.cu), K4 and K5
+   (csrc/stream.cu).
 3. Holds K1 against its plain PyTorch twin on the card (bit-exact).
 4. Drives the read-mapping path at chromosome scale, all from --seed: a
    150 Mb genome with planted repeats (a poly-A run, 0.5% copied
@@ -16,7 +18,8 @@
    complement) and mapped to node counts and membership through K2.
 5. Checks the counts and membership against an independent
    sort-and-search join on the card, 1,000 reads' hashes against numpy,
-   and that K1 and K2 were launched by step 4.
+   and that K1 and K2 were launched by step 4 (each path's launches are
+   counted from 0 just before it and read just after it).
 6. Holds K1 and K2 against their plain twins (bit-exact) on exactly the
    main path's inputs: K1 on the genome, K2 in counts and membership
    mode on every read segment, which between them hold queries of all
@@ -25,7 +28,19 @@
 7. Times both kernels against their twins at the main path's shapes
    (CUDA events, plain / kernel / kernel / plain), and raises unless
    the timed outputs of kernel and twin are equal.
-8. With ``--profile PATH``: torch.profiler over a second call of
+8. The hashing path. Holds K3 (P16 and P8) against its twin, bit-exact,
+   on 2^26 random bases and on lengths 1, 31 and 1,000,003, for k in
+   PACK_KS. Then drives the path on the main path's genome: the k = 31
+   rows of every window by the P16 route and by the P8 route (K3, the
+   lane derivation, combine_lanes), and the bandwidth controls K4
+   (stream_copy) and K5 (stream_sum) on a random 512 MiB float32 table;
+   checks that K3 (both modes), K4 and K5 were launched; holds K3
+   against its twin on the genome, both routes' rows against K1's, K4
+   against the table (exact) and K5 against a float64 sum (relative
+   1e-4). Times K3, K4 and K5 against their twins and both routes
+   against K1, and prints bytes/s and each hashing kernel's share of the
+   copy rate that K4 measured.
+9. With ``--profile PATH``: torch.profiler over a second call of
    map_kmers and of has_kmers; a summary line each on stdout, the
    operator tables in PATH.
 
@@ -51,15 +66,29 @@ from graph_kmer_index_tpu_torch import KmerIndex, hash_fasta_file  # noqa: E402
 from graph_kmer_index_tpu_torch.hashing import (  # noqa: E402
     kmer_hashes_to_reverse_complement_hash, sliding_window_hashes)
 from graph_kmer_index_tpu_torch.ops import _kernels  # noqa: E402
-from graph_kmer_index_tpu_torch.ops import encode, lookup  # noqa: E402
+from graph_kmer_index_tpu_torch.ops import (  # noqa: E402
+    encode, lookup, primitives)
 from graph_kmer_index_tpu_torch.utils import synthetic  # noqa: E402
 
 K1_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_hash.cu"
 K2_SOURCE = "graph_kmer_index_tpu_torch/csrc/packed_lookup.cu"
+K3_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_pack.cu"
+K45_SOURCE = "graph_kmer_index_tpu_torch/csrc/stream.cu"
 K1_REPLACES = "graph_kmer_index_tpu/ops/encode.py:133"
 K2_REPLACES = "graph_kmer_index_tpu/ops/lookup.py:349"
+K3_REPLACES = "graph_kmer_index_tpu/ops/encode.py:242"
+K4_REPLACES = "benchmarks/bench_primitives.py:325"
+K5_REPLACES = "benchmarks/bench_primitives.py:369"
 K = 31
 READ_LEN = 150
+PACK_KS = (1, 5, 8, 9, 12, 15, 16, 17, 21, 31)
+READ_MAPPING_KERNELS = ("sliding_hash", "packed_decode")
+HASHING_KERNELS = ("sliding_pack_p16", "sliding_pack_p8", "stream_copy",
+                   "stream_sum")
+# device bytes per base of each hashing kernel: 1 in, plus 8 (int64
+# hash), 4 (P16) or 2 (P8) out
+BYTES_PER_BASE = {"K1 sliding_hash": 9, "K3 P16": 5, "K3 P8": 3}
+SUM_RTOL = 1e-4  # the JAX benchmark's own bound (bench_primitives.py:420)
 
 
 def card_line() -> str:
@@ -99,6 +128,8 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
+    if a.is_floating_point():
+        return float((a.double() - b.double()).abs().max())
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -129,6 +160,28 @@ def check_k1(dev, n_random: int, gen) -> int:
     print(f"K1 == plain (bit-exact) on {len(cases)} cases, "
           f"incl. {n_random} bases x k in (1,15,16,17,31)", flush=True)
     return err
+
+
+def assert_close_sums(got, want, what: str) -> float:
+    """Raise unless float sums agree within SUM_RTOL, relative; returns the
+    max relative difference."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    want = want.double()
+    rel = float(((got.double() - want).abs() / want.abs()).max())
+    if not rel <= SUM_RTOL:
+        raise AssertionError(f"{what}: relative error {rel} > {SUM_RTOL}")
+    return rel
+
+
+def require_launches(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"{path}")
 
 
 def main_path(dev, card, args, workdir):
@@ -315,10 +368,11 @@ def check_k2(dev, state, n_q, gen) -> int:
     return err
 
 
-def time_pair(dev, kernel, plain, reps, what):
+def time_pair(dev, kernel, plain, reps, what, compare=assert_equal):
     """CUDA-event means over ``reps`` calls, in the order plain, kernel,
-    kernel, plain: (kernel ms, plain ms, the four means, max abs error).
-    Raises unless the kernel's output equals the twin's on these inputs."""
+    kernel, plain: (kernel ms, plain ms, the four means, max error).
+    Raises unless ``compare`` accepts the kernel's output against the
+    twin's on these inputs (by default: equal bit for bit)."""
     outs = []
 
     def once(fn):
@@ -334,9 +388,9 @@ def time_pair(dev, kernel, plain, reps, what):
 
     p1 = once(plain)
     k1 = once(kernel)
-    err = assert_equal(outs.pop(), outs.pop(), what)
+    err = compare(outs.pop(), outs.pop(), what)
     k2, p2 = once(kernel), once(plain)
-    err = max(err, assert_equal(outs[0], outs[1], what))
+    err = max(err, compare(outs[0], outs[1], what))
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2), err
 
 
@@ -374,6 +428,147 @@ def time_kernels(dev, card, state, k):
           f"{raw2}; classes final/deep/ultra {cls.tolist()} [{card}]",
           flush=True)
     return (k1_ms, k1_plain, k1_err), (k2_ms, k2_plain, k2_err)
+
+
+def check_k3(dev, n_random: int, gen) -> int:
+    """K3 == plain twin in both modes (P16, P8), bit-exact; returns the max
+    abs difference."""
+    err = 0
+    cases = [(n, k) for n in (n_random, 1, 31, 1_000_003) for k in PACK_KS]
+    for n, k in cases:
+        seq = torch.randint(0, 4, (n,), dtype=torch.int8, device=dev,
+                            generator=gen)
+        for m_cap in (16, 8):
+            err = max(err, assert_equal(
+                encode.sliding_pack(seq, k, m_cap),
+                encode.sliding_pack_plain(seq, k, m_cap),
+                f"K3 P{m_cap} at n={n} k={k}"))
+    print(f"K3 == plain (bit-exact), P16 and P8, on {len(cases)} cases: "
+          f"{n_random}, 1, 31 and 1000003 bases x k in {PACK_KS}",
+          flush=True)
+    return err
+
+
+def hashing_path(dev, card, genome, stream_rows, block_rows, gen):
+    """The genome-hashing path and the bandwidth controls, through the
+    functions a user calls: the k = 31 rows of every window of the genome
+    (the rows KmerIndex.from_arrays takes) by the P16 and by the P8 route
+    (K3, then the lane derivation and combine_lanes), and stream_copy /
+    stream_sum over a random float32 table of stream_rows x 128. Returns
+    every output."""
+    st = Stages(dev, card)
+    out = {}
+    routes = {16: (encode.sliding_p16, encode.p16_to_lanes),
+              8: (encode.sliding_p8, encode.p8_to_lanes)}
+    for m_cap, (pack, to_lanes) in routes.items():
+        packed = st.run(f"genome P{m_cap} (K3)", pack, genome, K)
+        out[f"rows{m_cap}"] = st.run(
+            f"P{m_cap} lanes + combine",
+            lambda: encode.combine_lanes(*to_lanes(packed, K)))
+        out[f"p{m_cap}"] = packed
+    table = torch.rand((stream_rows, primitives.STREAM_COLS),
+                       generator=gen, device=dev)
+    seed = torch.randint(1, 100, (1024,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    out.update(table=table, seed=seed, block_rows=block_rows)
+    out["copy"] = st.run("stream_copy (K4)", primitives.stream_copy, table)
+    out["sums"] = st.run("stream_sum (K5)", primitives.stream_sum, table,
+                         seed, block_rows)
+    return out
+
+
+def check_hashing(state, h) -> dict:
+    """The hashing path's outputs: K3 against its twin on the genome
+    (bit-exact), both routes' rows against K1's (bit-exact), K4 against its
+    source and clone() (exact), K5 against a float64 sum and its twin
+    (relative SUM_RTOL). Returns each kernel's error fields for the
+    kernels line: max_abs_err (K5: against the float64 sum, with its
+    max_rel_err)."""
+    genome = state["genome"]
+    errs = {f"sliding_pack_p{m}": {"max_abs_err": assert_equal(
+        h[f"p{m}"], encode.sliding_pack_plain(genome, K, m),
+        f"K3 P{m} on the main path's genome")} for m in (16, 8)}
+    want = encode.sliding_hashes(genome, K)
+    for m in (16, 8):
+        assert_equal(h[f"rows{m}"], want, f"the P{m} route's k={K} rows "
+                     "against K1's")
+    del want
+    table, seed, block_rows = h["table"], h["seed"], h["block_rows"]
+    errs["stream_copy"] = {"max_abs_err": max(
+        assert_equal(h["copy"], table, "K4 against its source"),
+        assert_equal(h["copy"], primitives.stream_copy_plain(table),
+                     "K4 against clone()"))}
+    n_blocks = table.shape[0] // block_rows
+    exact = table.view(n_blocks, -1).double().sum(1) + float(seed[0])
+    rel = assert_close_sums(h["sums"], exact, "K5 against a float64 sum")
+    assert_close_sums(h["sums"], primitives.stream_sum_plain(
+        table, seed, block_rows), "K5 against its twin")
+    errs["stream_sum"] = {"max_abs_err": max_abs_diff(h["sums"], exact),
+                          "max_rel_err": rel}
+    print(f"K3 == plain (bit-exact), P16 and P8, on the main path's "
+          f"{genome.shape[0]} bases; the P16 and the P8 route's k={K} rows "
+          f"== K1's (bit-exact); K4 == source and clone() (exact) on "
+          f"{table.numel() * 4} bytes; K5 within {rel:.3e} relative (bound "
+          f"{SUM_RTOL}) of a float64 sum over {n_blocks} blocks", flush=True)
+    return errs
+
+
+def time_hashing(dev, card, state, h, reps=10):
+    """K3 (both modes), K4 and K5 against their twins, and the whole P16
+    and P8 routes against K1, on the hashing path's inputs; every timed
+    output is compared. Prints the rates; returns {name: (ms, plain ms)}
+    for the kernels."""
+    genome = state["genome"]
+    n = genome.shape[0]
+    table, seed, block_rows = h["table"], h["seed"], h["block_rows"]
+    timed = {}
+    for m in (16, 8):
+        timed[f"sliding_pack_p{m}"] = time_pair(
+            dev, lambda m=m: encode.sliding_pack(genome, K, m),
+            lambda m=m: encode.sliding_pack_plain(genome, K, m), reps,
+            f"K3 P{m} timed on the genome")
+    timed["stream_copy"] = time_pair(
+        dev, lambda: primitives.stream_copy(table),
+        lambda: primitives.stream_copy_plain(table), reps, "K4 timed")
+    timed["stream_sum"] = time_pair(
+        dev, lambda: primitives.stream_sum(table, seed, block_rows),
+        lambda: primitives.stream_sum_plain(table, seed, block_rows), reps,
+        "K5 timed", compare=assert_close_sums)
+    routes = {}
+    for m, route in ((16, encode.sliding_hashes_p16),
+                     (8, encode.sliding_hashes_p8)):
+        routes[m] = time_pair(
+            dev, lambda route=route: encode.combine_lanes(*route(genome, K)),
+            lambda: encode.sliding_hashes(genome, K), reps,
+            f"the P{m} route timed against K1")
+
+    nbytes = table.numel() * 4
+    for name, moved in (("stream_copy", 2 * nbytes), ("stream_sum", nbytes)):
+        ms, plain_ms, raw, _ = timed[name]
+        print(f"timing K{4 if name == 'stream_copy' else 5} {name}, "
+              f"{nbytes} bytes: kernel {ms:.6f} ms "
+              f"({moved / ms / 1e9:.3f} TB/s), plain {plain_ms:.6f} ms "
+              f"({moved / plain_ms / 1e9:.3f} TB/s); kernel,kernel,plain,"
+              f"plain = {raw} [{card}]", flush=True)
+    copy_rate = 2 * nbytes / timed["stream_copy"][0] * 1e3
+    k1_ms = (routes[16][1] + routes[8][1]) / 2
+    for name, ms in (("K1 sliding_hash", k1_ms),
+                     ("K3 P16", timed["sliding_pack_p16"][0]),
+                     ("K3 P8", timed["sliding_pack_p8"][0])):
+        rate = BYTES_PER_BASE[name] * n / ms * 1e3
+        print(f"timing {name}, {n} bases k={K}: {ms:.6f} ms, "
+              f"{BYTES_PER_BASE[name]} B/base, {rate / 1e12:.3f} TB/s, "
+              f"{rate / copy_rate:.4f} of K4's copy rate [{card}]",
+              flush=True)
+    for m in (16, 8):
+        ms, k1, raw, _ = routes[m]
+        kernel_ms, plain_ms = timed[f"sliding_pack_p{m}"][:2]
+        print(f"timing the P{m} route (K3, lanes, combine_lanes) to int64 "
+              f"rows: {ms:.6f} ms against K1's {k1:.6f} ms, outputs equal; "
+              f"K3 P{m} alone {kernel_ms:.6f} ms (plain {plain_ms:.6f} ms), "
+              f"so the derivation takes {ms - kernel_ms:.6f} ms; "
+              f"route,route,K1,K1 = {raw} [{card}]", flush=True)
+    return {name: t[:2] for name, t in timed.items()}
 
 
 def _device_us(event) -> float:
@@ -453,10 +648,7 @@ def main(argv=None) -> int:
     print(f"main path launches {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev)} bytes [{card}]",
           flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 "main path")
+    require_launches(launches, READ_MAPPING_KERNELS, "read-mapping path")
 
     check_results(dev, state, K, 1000,
                   np.random.default_rng(args.seed + 1))
@@ -466,6 +658,17 @@ def main(argv=None) -> int:
     (k1_ms, k1_plain, t1_err), (k2_ms, k2_plain, t2_err) = time_kernels(
         dev, card, state, K)
     k1_err, k2_err = max(k1_err, t1_err), max(k2_err, t2_err)
+
+    check_k3(dev, 1 << 26, gen)
+    _kernels.reset_launch_counts()
+    hashed = hashing_path(dev, card, state["genome"], primitives.STREAM_ROWS,
+                          primitives.BLOCK_ROWS, gen)
+    hash_launches = dict(_kernels.launch_counts)
+    print(f"hashing path launches {hash_launches} [{card}]", flush=True)
+    require_launches(hash_launches, HASHING_KERNELS, "hashing path")
+    errs = check_hashing(state, hashed)
+    timed = time_hashing(dev, card, state, hashed)
+    del hashed
     if args.profile:
         profile_lookup(dev, card, state, args.profile)
 
@@ -477,6 +680,16 @@ def main(argv=None) -> int:
          "replaces": K2_REPLACES, "launches": launches["packed_decode"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
     ]
+    sources = {"sliding_pack_p16": (K3_SOURCE, K3_REPLACES),
+               "sliding_pack_p8": (K3_SOURCE, K3_REPLACES),
+               "stream_copy": (K45_SOURCE, K4_REPLACES),
+               "stream_sum": (K45_SOURCE, K5_REPLACES)}
+    for name, (source, replaces) in sources.items():
+        ms, plain_ms = timed[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": hash_launches[name], **errs[name],
+                        "ms": ms, "plain_ms": plain_ms})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

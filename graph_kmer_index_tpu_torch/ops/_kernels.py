@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (ctypes route).
 
 The sources under ``csrc/`` have a plain C interface, so they compile with
-nvcc alone in seconds (no PyTorch headers) into one shared library under
+nvcc alone in seconds (no PyTorch headers): one nvcc per source, all
+started together, then one link into a shared library under
 ``graph_kmer_index_tpu_torch/build/``, named by the sources' content hash.
 The library is built at first use, never at import: the CPU tests import
 every module on a machine without nvcc.
@@ -27,11 +28,14 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("sliding_hash.cu", "packed_lookup.cu")
+SOURCES = ("sliding_hash.cu", "packed_lookup.cu", "sliding_pack.cu",
+           "stream.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-launch_counts = {"sliding_hash": 0, "packed_decode": 0}
+launch_counts = {"sliding_hash": 0, "packed_decode": 0,
+                 "sliding_pack_p16": 0, "sliding_pack_p8": 0,
+                 "stream_copy": 0, "stream_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -57,29 +61,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgki_torch_{digest.hexdigest()[:16]}.so"
 
 
+def _run_together(cmds: list[list[str]]) -> None:
+    """Start every command, wait for all of them, and raise with the output
+    of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+
+
 @functools.cache
 def build() -> tuple[Path, float]:
     """Compile the kernels unless the library for these sources exists.
     Returns (library path, build seconds); raises with nvcc's output if
-    the compile fails."""
+    a compile or the link fails."""
     path = library_path()
     if path.exists():
         return path, 0.0
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC_DIR / name) for name in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)
-    return path, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{Path(name).stem}.o") for name in SOURCES]
+        _run_together([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                        str(CSRC_DIR / name)]
+                       for name, obj in zip(SOURCES, objs)])
+        lib = Path(tmp) / path.name
+        _run_together([[nvcc, "-shared", "-o", str(lib), *objs]])
+        os.replace(lib, path)
+    return path, time.perf_counter() - t0
 
 
 @functools.cache
@@ -91,6 +105,13 @@ def library() -> ctypes.CDLL:
     lib.gki_packed_decode.argtypes = [ptr, ptr, i64, i64, i64, ptr, i64,
                                       ptr, ptr, ptr]
     lib.gki_packed_decode.restype = ctypes.c_int
+    lib.gki_sliding_pack.argtypes = [ptr, ptr, i64, ctypes.c_int,
+                                     ctypes.c_int, ptr]
+    lib.gki_sliding_pack.restype = ctypes.c_int
+    lib.gki_stream_copy.argtypes = [ptr, ptr, i64, ptr]
+    lib.gki_stream_copy.restype = ctypes.c_int
+    lib.gki_stream_sum.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
+    lib.gki_stream_sum.restype = ctypes.c_int
     return lib
 
 
@@ -108,6 +129,12 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
     """Raise on anything a kernel does not take."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    check_tensor(t, name, dtype, ndim)
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 ndim: int) -> None:
+    """Raise unless ``t`` has this dtype and rank and is contiguous."""
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:

@@ -47,6 +47,46 @@ def test_smoke_phases_on_cpu(tmp_path, capsys):
     assert state["tables"].max_sz > 256
 
 
+def test_smoke_hashing_phase_on_cpu(capsys):
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    assert cs.check_k3(dev, 3000, gen) == 0
+    genome = torch.randint(0, 4, (5000,), dtype=torch.int8, generator=gen)
+    # bench_primitives.py's small sizes: 2^10 x 128 rows, blocks of 128
+    hashed = cs.hashing_path(dev, "CPU", genome, 1 << 10, 1 << 7, gen)
+    assert hashed["sums"].shape == (8,)
+    errs = cs.check_hashing({"genome": genome}, hashed)
+    for name in ("sliding_pack_p16", "sliding_pack_p8", "stream_copy"):
+        assert errs[name] == {"max_abs_err": 0}
+    assert errs["stream_sum"]["max_rel_err"] <= cs.SUM_RTOL
+    out = capsys.readouterr().out
+    assert "on the main path's 5000 bases" in out
+    assert "the P16 and the P8 route's k=31 rows == K1's" in out
+
+
+def test_smoke_requires_each_paths_kernels():
+    cs = _smoke()
+    assert (sorted(cs.READ_MAPPING_KERNELS + cs.HASHING_KERNELS)
+            == sorted(_kernels.launch_counts))
+    launches = dict.fromkeys(_kernels.launch_counts, 1)
+    cs.require_launches(launches, cs.HASHING_KERNELS, "hashing path")
+    launches["stream_sum"] = 0
+    cs.require_launches(launches, cs.READ_MAPPING_KERNELS, "read-mapping")
+    with pytest.raises(AssertionError, match="stream_sum was not launched "
+                       "by the hashing path"):
+        cs.require_launches(launches, cs.HASHING_KERNELS, "hashing path")
+
+
+def test_smoke_sum_tolerance():
+    cs = _smoke()
+    want = torch.tensor([1000.0, 2000.0])
+    assert cs.assert_close_sums(want + 0.05, want, "sums") <= cs.SUM_RTOL
+    with pytest.raises(AssertionError, match="relative error"):
+        cs.assert_close_sums(want + 1.0, want, "sums")
+
+
 def test_smoke_refuses_a_machine_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -93,7 +133,10 @@ def test_synthetic_genome_and_reads(tmp_path):
 
 @pytest.mark.parametrize("attr,function", [
     ("K1_REPLACES", "def _hash_kernel("),
-    ("K2_REPLACES", "def _decode_group_rows(")])
+    ("K2_REPLACES", "def _decode_group_rows("),
+    ("K3_REPLACES", "def _pack_kernel("),
+    ("K4_REPLACES", "def k_pallas_stream_copy("),
+    ("K5_REPLACES", "def k_pallas_stream_sum(")])
 def test_smoke_names_the_replaced_code(attr, function):
     """The file:line each kernel reports as replaced is that function."""
     path, line = getattr(_smoke(), attr).rsplit(":", 1)
