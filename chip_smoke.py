@@ -8,7 +8,7 @@
 2. Builds the hand-written kernels from the checkout's sources (one nvcc
    per source, all at once): K1 (csrc/sliding_hash.cu), K2
    (csrc/packed_lookup.cu), K3 (csrc/sliding_pack.cu), K4 and K5
-   (csrc/stream.cu).
+   (csrc/stream.cu), K6-K8 (csrc/probes.cu).
 3. Holds K1 against its plain PyTorch twin on the card (bit-exact).
 4. Drives the read-mapping path at chromosome scale, all from --seed: a
    150 Mb genome with planted repeats (a poly-A run, 0.5% copied
@@ -40,9 +40,25 @@
    1e-4). Times K3, K4 and K5 against their twins and both routes
    against K1, and prints bytes/s and each hashing kernel's share of the
    copy rate that K4 measured.
-9. With ``--profile PATH``: torch.profiler over a second call of
-   map_kmers and of has_kmers; a summary line each on stdout, the
-   operator tables in PATH.
+9. The lookup path (its launches counted from 0 as well). Builds a CSR
+   index (KmerIndex.from_rows: bucket layout and set_frequencies) from
+   the main path's rows at the reference modulo 452,930,477, ref offset
+   = row position, seeded float32 allele frequencies; maps and tests
+   every read k-mer through the CSR path (packed budget 0); runs
+   get_batched on the first 2^24 read k-mers through the searchsorted
+   route and the tables route, and the get API (max_hits 10) on them;
+   runs the probes K6 (gather_loop), K7 (rmw_loop) and K8 (bcast_cmp)
+   at bench_primitives.py's full sizes, K8 with planted matches and
+   repeated table keys. Checks that K6-K8 were launched; that the CSR
+   counts and membership equal the packed path's; that both get_batched
+   routes are equal, and equal an independent sort-and-search join on a
+   sample of 10,000 queries; that the get API keeps exactly the rows of
+   frequency <= max_hits; and each probe against its twin (exact). Times
+   the probes against their twins, the CSR map/has against the packed
+   path and the two get_batched routes against each other.
+10. With ``--profile PATH``: torch.profiler over a second call of
+   map_kmers and of has_kmers, by the packed and by the CSR path; a
+   summary line each on stdout, the operator tables in PATH.
 
 Any failed check raises before the last line, which is
 ``{"ok": true, "device": {...}}``.
@@ -74,17 +90,29 @@ K1_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_hash.cu"
 K2_SOURCE = "graph_kmer_index_tpu_torch/csrc/packed_lookup.cu"
 K3_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_pack.cu"
 K45_SOURCE = "graph_kmer_index_tpu_torch/csrc/stream.cu"
+K678_SOURCE = "graph_kmer_index_tpu_torch/csrc/probes.cu"
 K1_REPLACES = "graph_kmer_index_tpu/ops/encode.py:133"
 K2_REPLACES = "graph_kmer_index_tpu/ops/lookup.py:349"
 K3_REPLACES = "graph_kmer_index_tpu/ops/encode.py:242"
 K4_REPLACES = "benchmarks/bench_primitives.py:325"
 K5_REPLACES = "benchmarks/bench_primitives.py:369"
+K6_REPLACES = "benchmarks/bench_primitives.py:140"
+K7_REPLACES = "benchmarks/bench_primitives.py:182"
+K8_REPLACES = "benchmarks/bench_primitives.py:224"
 K = 31
 READ_LEN = 150
 PACK_KS = (1, 5, 8, 9, 12, 15, 16, 17, 21, 31)
 READ_MAPPING_KERNELS = ("sliding_hash", "packed_decode")
 HASHING_KERNELS = ("sliding_pack_p16", "sliding_pack_p8", "stream_copy",
                    "stream_sum")
+LOOKUP_KERNELS = ("gather_loop", "rmw_loop", "bcast_cmp")
+# the CSR index of the lookup path: the reference's default modulo, and
+# the get_batched batch and its sample checked against a join
+REF_MODULO = 452_930_477
+GET_QUERIES = 1 << 24
+GET_SAMPLE = 10_000
+GET_MAX_HITS = 10
+CAPS_OFF = (1 << 31) - 1
 # device bytes per base of each hashing kernel: 1 in, plus 8 (int64
 # hash), 4 (P16) or 2 (P8) out
 BYTES_PER_BASE = {"K1 sliding_hash": 9, "K3 P16": 5, "K3 P8": 3}
@@ -571,14 +599,255 @@ def time_hashing(dev, card, state, h, reps=10):
     return {name: t[:2] for name, t in timed.items()}
 
 
+def probe_inputs(dev, gen, n_q, block_q, n_cmp, n_entries) -> dict:
+    """Seeded inputs of the three probes at bench_primitives.py's shapes:
+    n_q int32 indices into a (PROBE_ROWS, PROBE_COLS) int32 table of
+    values < 2^30 (K6, K7); n_cmp queries as (n_cmp / 128, 128) lo and hi
+    against n_entries table keys (K8), where every 16th entry repeats its
+    predecessor's key with its own node and a quarter of the queries take
+    a table entry's key, so that counts above 1 and the first-match rule
+    are exercised."""
+    rows, cols = primitives.PROBE_ROWS, primitives.PROBE_COLS
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    tlo, thi = ints(1 << 31, (n_entries,)), ints(1 << 30, (n_entries,))
+    tlo[1::16], thi[1::16] = tlo[0::16][:tlo[1::16].shape[0]], \
+        thi[0::16][:thi[1::16].shape[0]]
+    qlo, qhi = ints(1 << 31, (n_cmp // 128, 128)), ints(1 << 30,
+                                                        (n_cmp // 128, 128))
+    at = torch.randperm(n_cmp, device=dev, generator=gen)[:n_cmp // 4]
+    pick = torch.randint(0, n_entries, at.shape, device=dev, generator=gen)
+    qlo.view(-1)[at], qhi.view(-1)[at] = tlo[pick], thi[pick]
+    return dict(idx=ints(rows, (n_q,)), table=ints(1 << 30, (rows, cols)),
+                block_q=block_q,
+                cmp=(qlo, qhi, tlo, thi, ints(1 << 20, (n_entries,))))
+
+
+def first_queries(read_kmers, n: int) -> torch.Tensor:
+    """The first ``n`` read k-mers of a DeviceReadKmers batch."""
+    parts, have = [], 0
+    for seg in read_kmers.segments:
+        if have >= n:
+            break
+        parts.append(seg[:n - have])
+        have += parts[-1].shape[0]
+    return torch.cat(parts)
+
+
+def lookup_path(dev, card, state, probes, modulo, n_get, gen) -> dict:
+    """The CSR lookup path through the functions a user calls: a CSR
+    index (KmerIndex.from_rows) over the main path's rows at ``modulo``,
+    ref offset = row position, seeded float32 allele frequencies;
+    map_kmers / has_kmers over every read k-mer with the packed budget at
+    0; get_batched on the first ``n_get`` read k-mers through a view on
+    the searchsorted route and one on the tables route (its budget
+    raised); the get API on the same queries; and the three probes on
+    ``probes``. Returns every output."""
+    st = Stages(dev, card)
+    rows = state["index"]
+    n = rows.kmers.shape[0]
+    afs = torch.rand(n, generator=gen, device=dev)
+    csr = st.run("CSR index build (from_rows: layout + set_frequencies)",
+                 KmerIndex.from_rows, rows.kmers, rows.nodes,
+                 torch.arange(n, device=dev), afs, modulo, device=dev)
+    csr.device_index.PACKED_BYTE_BUDGET = 0
+    out = dict(csr=csr, afs=afs, modulo=modulo, probes=probes)
+    read_kmers, n_nodes = state["read_kmers"], state["n_nodes"]
+    out["counts"] = st.run("CSR map_kmers", csr.map_kmers, read_kmers,
+                           n_nodes)
+    out["member"] = st.run("CSR has_kmers", csr.has_kmers, read_kmers)
+
+    searched = lookup.DeviceKmerIndex(csr)
+    default_route = ("tables" if searched._bucket_tables_cheap()
+                     else "searchsorted")
+    searched.BUCKET_TABLE_BYTE_BUDGET = 0
+    tabled = lookup.DeviceKmerIndex(csr)
+    tabled.BUCKET_TABLE_BYTE_BUDGET = 1 << 62
+    q = first_queries(read_kmers, n_get)
+    print(f"CSR index: {n} rows at modulo {modulo}, max bucket "
+          f"{searched.max_scan}; get_batched's default route: "
+          f"{default_route} (the budget counts 12 B per bucket, "
+          f"{12 * modulo} bytes, against "
+          f"{lookup.DeviceKmerIndex.BUCKET_TABLE_BYTE_BUDGET})", flush=True)
+    out.update(q=q, searched=searched, tabled=tabled,
+               default_route=default_route)
+    out["get_searched"] = st.run("get_batched (searchsorted route)",
+                                 searched.get_batched, q)
+    out["get_tables"] = st.run("get_batched (tables route)",
+                               tabled.get_batched, q)
+    out["get_api"] = st.run(
+        "get_nodes_and_ref_offsets_from_multiple_kmers",
+        csr.get_nodes_and_ref_offsets_from_multiple_kmers, q, GET_MAX_HITS)
+
+    out["gather"] = st.run("gather_loop (K6)", primitives.gather_loop,
+                           probes["idx"], probes["table"], probes["block_q"])
+    out["rmw"] = st.run("rmw_loop (K7)", primitives.rmw_loop, probes["idx"])
+    out["cmp"] = st.run("bcast_cmp (K8)", primitives.bcast_cmp,
+                        *probes["cmp"])
+    return out
+
+
+def join_rows(state, lk, sample, hit_cap, freq_cap) -> torch.Tensor:
+    """get_batched's rows for the queries ``q[sample]`` by a join that
+    shares no code with the index: the main path's rows sorted by k-mer,
+    each query matched by searchsorted, its bucket size counted in the
+    sorted buckets of every row, then the caps. A k-mer's rows keep
+    their row order, which is the CSR index's order within a bucket;
+    ref offsets are row positions, so a k-mer's frequency is its number
+    of rows (in 16 bits)."""
+    kmers, nodes = state["index"].kmers, state["index"].nodes
+    modulo = lk["modulo"]
+    q = lk["q"][sample]
+    sk, perm = torch.sort(kmers, stable=True)
+    left = torch.searchsorted(sk, q)
+    cnt = torch.searchsorted(sk, q, right=True) - left
+    del sk
+    buckets = torch.sort(kmers % modulo).values
+    qb = q % modulo
+    bsize = (torch.searchsorted(buckets, qb, right=True)
+             - torch.searchsorted(buckets, qb))
+    del buckets
+    freq = cnt & 0xFFFF
+    cnt = torch.where((bsize <= hit_cap) & (freq <= freq_cap), cnt, 0)
+    owner = torch.repeat_interleave(torch.arange(q.shape[0], device=q.device),
+                                    cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    rows = perm[left[owner] + torch.arange(owner.shape[0],
+                                           device=q.device) - first[owner]]
+    return torch.stack([nodes[rows], rows, sample[owner], freq[owner],
+                        (lk["afs"][rows] * 1000).to(torch.int64)])
+
+
+def check_lookup(dev, state, lk, n_sample, gen) -> dict:
+    """The lookup path's outputs: CSR counts and membership equal to the
+    packed path's, both get_batched routes equal to each other and to
+    join_rows on a sample of queries, the get API's rows equal to the
+    uncapped rows of frequency <= GET_MAX_HITS, each probe equal to its
+    twin. Returns each probe's error fields for the kernels line."""
+    if not (np.array_equal(lk["counts"], state["counts"])
+            and np.array_equal(lk["member"], state["member"])):
+        raise AssertionError("CSR counts or membership differ from the "
+                             "packed path's")
+    got = lk["get_searched"]
+    assert_equal(got, lk["get_tables"], "get_batched: searchsorted route "
+                 "against the tables route")
+    q = lk["q"]
+    sample = torch.sort(torch.randperm(q.shape[0], device=dev,
+                                       generator=gen)[:n_sample]).values
+    want = join_rows(state, lk, sample, lookup.DEFAULT_HIT_CAP,
+                     lookup.DEFAULT_FREQUENCY_CAP)
+    assert_equal(got[:, torch.isin(got[2], sample)], want,
+                 f"get_batched against the join on {n_sample} queries")
+    full = lk["tabled"].get_batched(q, hit_cap=CAPS_OFF,
+                                    frequency_cap=CAPS_OFF)
+    keep = full[:, full[3] <= GET_MAX_HITS].cpu().numpy()
+    nodes, offs, qi, freqs = lk["get_api"]
+    if not (np.array_equal(nodes, keep[0]) and np.array_equal(offs, keep[1])
+            and np.array_equal(qi, keep[2].astype(np.float64))
+            and np.array_equal(freqs, keep[3].astype(np.uint16))
+            and freqs.dtype == np.uint16 and qi.dtype == np.float64):
+        raise AssertionError("the get API's rows differ from get_batched's")
+    csr = lk["csr"]
+    picks = q[sample[:20]].tolist()
+    member = lk["member"]
+    if any((kmer in csr) != bool(member[int(i)])
+           for kmer, i in zip(picks, sample[:20].tolist())):
+        raise AssertionError("KmerIndex.__contains__ differs from has_kmers")
+
+    p = lk["probes"]
+    errs = {"gather_loop": assert_equal(
+        lk["gather"], primitives.gather_loop_plain(p["idx"], p["table"],
+                                                   p["block_q"]),
+        "K6 against its twin"),
+        "rmw_loop": assert_equal(lk["rmw"], primitives.rmw_loop_plain(
+            p["idx"]), "K7 against its twin"),
+        "bcast_cmp": assert_equal(lk["cmp"], primitives.bcast_cmp_plain(
+            *p["cmp"]), "K8 against its twin")}
+    cnt = lk["cmp"][1]
+    if int(cnt.max()) < 2 or not bool((cnt == 1).any()):
+        raise AssertionError("K8's inputs hold no single and no repeated "
+                             "match")
+    print(f"CSR counts and membership == the packed path's on "
+          f"{lk['member'].shape[0]} read k-mers; get_batched: searchsorted "
+          f"route == tables route ({got.shape[1]} rows for {q.shape[0]} "
+          f"queries), == the join on {n_sample} sampled queries "
+          f"({want.shape[1]} rows); the get API (max_hits {GET_MAX_HITS}) "
+          f"== the uncapped rows of frequency <= {GET_MAX_HITS} "
+          f"({nodes.shape[0]} rows); K6, K7 and K8 == plain (exact), K8 "
+          f"with up to {int(cnt.max())} matches per query", flush=True)
+    return {name: {"max_abs_err": err} for name, err in errs.items()}
+
+
+def time_lookup(dev, card, state, lk, reps=100) -> dict:
+    """The probes against their twins (means of ``reps`` launches, K8
+    reps // 10), the CSR map/has against the packed path's and the two
+    get_batched routes against each other; every timed output is
+    compared. Prints the rates; returns {probe: (ms, plain ms)}."""
+    p = lk["probes"]
+    timed = {
+        "gather_loop": time_pair(
+            dev, lambda: primitives.gather_loop(p["idx"], p["table"],
+                                                p["block_q"]),
+            lambda: primitives.gather_loop_plain(p["idx"], p["table"],
+                                                 p["block_q"]),
+            reps, "K6 timed"),
+        "rmw_loop": time_pair(
+            dev, lambda: primitives.rmw_loop(p["idx"]),
+            lambda: primitives.rmw_loop_plain(p["idx"]), reps, "K7 timed"),
+        "bcast_cmp": time_pair(
+            dev, lambda: primitives.bcast_cmp(*p["cmp"]),
+            lambda: primitives.bcast_cmp_plain(*p["cmp"]), max(1, reps // 10),
+            "K8 timed")}
+    n_idx = p["idx"].shape[0]
+    n_cmp, n_entries = p["cmp"][0].numel(), p["cmp"][2].shape[0]
+    for name, items, unit in (("gather_loop", n_idx, "gathers"),
+                              ("rmw_loop", n_idx, "increments"),
+                              ("bcast_cmp", n_cmp * n_entries, "compares")):
+        ms, plain_ms, raw, _ = timed[name]
+        print(f"timing {name}: kernel {ms:.6f} ms ({items / ms / 1e6:.3f} G "
+              f"{unit}/s), plain {plain_ms:.6f} ms "
+              f"({items / plain_ms / 1e6:.3f} G {unit}/s); kernel,kernel,"
+              f"plain,plain = {raw} [{card}]", flush=True)
+
+    csr, packed = lk["csr"].device_index, state["index"].device_index
+    read_kmers, n_nodes = state["read_kmers"], state["n_nodes"]
+    n_q = len(read_kmers)
+    pairs = {
+        "map_kmers": (lambda: csr.map_read_kmers(read_kmers, n_nodes),
+                      lambda: packed.map_read_kmers(read_kmers, n_nodes)),
+        "has_kmers": (lambda: csr.has_read_kmers(read_kmers),
+                      lambda: packed.has_read_kmers(read_kmers))}
+    for name, (csr_fn, packed_fn) in pairs.items():
+        ms, packed_ms, raw, _ = time_pair(dev, csr_fn, packed_fn, 1,
+                                          f"CSR {name} timed")
+        print(f"timing {name} on {n_q} read k-mers: CSR {ms:.6f} ms "
+              f"({n_q / ms / 1e6:.3f} G queries/s), packed {packed_ms:.6f} "
+              f"ms ({n_q / packed_ms / 1e6:.3f} G queries/s); csr,csr,"
+              f"packed,packed = {raw} [{card}]", flush=True)
+    q = lk["q"]
+    ms, ms_s, raw, _ = time_pair(
+        dev, lambda: lk["tabled"].get_batched(q),
+        lambda: lk["searched"].get_batched(q), 3, "get_batched routes timed")
+    print(f"timing get_batched on {q.shape[0]} queries: tables route "
+          f"{ms:.6f} ms ({q.shape[0] / ms / 1e6:.3f} G queries/s), "
+          f"searchsorted route {ms_s:.6f} ms "
+          f"({q.shape[0] / ms_s / 1e6:.3f} G queries/s); tables,tables,"
+          f"searchsorted,searchsorted = {raw} [{card}]", flush=True)
+    return {name: t[:2] for name, t in timed.items()}
+
+
 def _device_us(event) -> float:
     us = getattr(event, "self_device_time_total", None)
     return us if us is not None else event.self_cuda_time_total
 
 
-def profile_lookup(dev, card, state, path):
-    """torch.profiler over a second call of map_kmers and of has_kmers:
-    per call, one summary line on stdout (host wall ms, the profiler's
+def profile_lookup(dev, card, state, path, csr=None):
+    """torch.profiler over a second call of map_kmers and of has_kmers
+    (and, given the lookup path's CSR index, of its CSR map/has): per
+    call, one summary line on stdout (host wall ms, the profiler's
     self-time totals, and the K2, nonzero and device-to-host copy rows)
     and the operator table in ``path``."""
     from torch.profiler import ProfilerActivity, profile
@@ -587,6 +856,10 @@ def profile_lookup(dev, card, state, path):
     calls = {"map_kmers": lambda: index.map_kmers(read_kmers,
                                                   state["n_nodes"]),
              "has_kmers": lambda: index.has_kmers(read_kmers)}
+    if csr is not None:
+        calls["CSR map_kmers"] = lambda: csr.map_kmers(read_kmers,
+                                                       state["n_nodes"])
+        calls["CSR has_kmers"] = lambda: csr.has_kmers(read_kmers)
     with open(path, "w") as out:
         for name, fn in calls.items():
             sync(dev)
@@ -669,8 +942,23 @@ def main(argv=None) -> int:
     errs = check_hashing(state, hashed)
     timed = time_hashing(dev, card, state, hashed)
     del hashed
+
+    probes = probe_inputs(dev, gen, primitives.PROBE_QUERIES,
+                          primitives.PROBE_BLOCK, primitives.CMP_QUERIES,
+                          primitives.CMP_ENTRIES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launch_counts()
+    lk = lookup_path(dev, card, state, probes, REF_MODULO, GET_QUERIES, gen)
+    lookup_launches = dict(_kernels.launch_counts)
+    print(f"lookup path launches {lookup_launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes [{card}]",
+          flush=True)
+    require_launches(lookup_launches, LOOKUP_KERNELS, "lookup path")
+    errs.update(check_lookup(dev, state, lk, GET_SAMPLE, gen))
+    timed.update(time_lookup(dev, card, state, lk))
     if args.profile:
-        profile_lookup(dev, card, state, args.profile)
+        profile_lookup(dev, card, state, args.profile, lk["csr"])
+    del lk
 
     kernels = [
         {"name": "sliding_hash", "route": "cuda", "source": K1_SOURCE,
@@ -680,15 +968,18 @@ def main(argv=None) -> int:
          "replaces": K2_REPLACES, "launches": launches["packed_decode"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
     ]
-    sources = {"sliding_pack_p16": (K3_SOURCE, K3_REPLACES),
-               "sliding_pack_p8": (K3_SOURCE, K3_REPLACES),
-               "stream_copy": (K45_SOURCE, K4_REPLACES),
-               "stream_sum": (K45_SOURCE, K5_REPLACES)}
-    for name, (source, replaces) in sources.items():
+    sources = {"sliding_pack_p16": (K3_SOURCE, K3_REPLACES, hash_launches),
+               "sliding_pack_p8": (K3_SOURCE, K3_REPLACES, hash_launches),
+               "stream_copy": (K45_SOURCE, K4_REPLACES, hash_launches),
+               "stream_sum": (K45_SOURCE, K5_REPLACES, hash_launches),
+               "gather_loop": (K678_SOURCE, K6_REPLACES, lookup_launches),
+               "rmw_loop": (K678_SOURCE, K7_REPLACES, lookup_launches),
+               "bcast_cmp": (K678_SOURCE, K8_REPLACES, lookup_launches)}
+    for name, (source, replaces, path_launches) in sources.items():
         ms, plain_ms = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": hash_launches[name], **errs[name],
+                        "launches": path_launches[name], **errs[name],
                         "ms": ms, "plain_ms": plain_ms})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,13 +29,14 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("sliding_hash.cu", "packed_lookup.cu", "sliding_pack.cu",
-           "stream.cu")
+           "stream.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 launch_counts = {"sliding_hash": 0, "packed_decode": 0,
                  "sliding_pack_p16": 0, "sliding_pack_p8": 0,
-                 "stream_copy": 0, "stream_sum": 0}
+                 "stream_copy": 0, "stream_sum": 0, "gather_loop": 0,
+                 "rmw_loop": 0, "bcast_cmp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -112,6 +113,14 @@ def library() -> ctypes.CDLL:
     lib.gki_stream_copy.restype = ctypes.c_int
     lib.gki_stream_sum.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
     lib.gki_stream_sum.restype = ctypes.c_int
+    lib.gki_gather_loop.argtypes = [ptr, ptr, i64, ctypes.c_int, i64,
+                                    ctypes.c_int, ptr, ptr]
+    lib.gki_gather_loop.restype = ctypes.c_int
+    lib.gki_rmw_loop.argtypes = [ptr, i64, ctypes.c_int, i64, ptr, ptr]
+    lib.gki_rmw_loop.restype = ctypes.c_int
+    lib.gki_bcast_cmp.argtypes = [ptr, ptr, i64, ptr, ptr, ptr,
+                                  ctypes.c_int, ptr, ptr, ptr]
+    lib.gki_bcast_cmp.restype = ctypes.c_int
     return lib
 
 

@@ -1,5 +1,7 @@
-"""Packed-record lookup: the port of graph_kmer_index_tpu/ops/lookup.py's
-packed path (build, decode, deep-bucket scan, ultra-deep resolution).
+"""Device lookup: the port of graph_kmer_index_tpu/ops/lookup.py. The
+packed-record path (build, decode, deep-bucket scan, ultra-deep
+resolution) serves map/has; the CSR bucket scan serves them when the
+records exceed the device's budget, and serves ``get_batched``.
 
 The table lives under an INTERNAL modulo (next prime >= 2n+1, load factor
 <= 0.5) as one 32-byte record per bucket, stored as an int32 tensor of
@@ -18,17 +20,30 @@ lane 6 and resolve by scanning the bucket-sorted rows; buckets deeper than
 Kernel K2 (csrc/packed_lookup.cu) does the per-query decode; the deep
 scan and the ultra resolution are plain torch on the few queries that
 need them.
+
+The CSR path reads the rows as the index stores them, sorted by bucket
+under the REFERENCE modulo: a query's rows are [start, start + size) of
+its bucket, from the modulo-sized bucket tables (two gathers per query)
+or from a searchsorted over the n-sized sorted bucket column (no
+modulo-sized tables). The JAX package scans a dense (queries, max_scan)
+matrix, a static-shape device program; the port scans by depth instead
+(pass j keeps only the queries whose bucket holds more than j rows), so a
+poly-A bucket of hundreds of rows costs its own queries and no others.
 """
 from __future__ import annotations
 
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _kernels
 
 SCAN_CAP = 256
+# the CythonKmerIndex.get caps that get_batched keeps by default
+DEFAULT_HIT_CAP = 10000
+DEFAULT_FREQUENCY_CAP = 20
 DUP2 = 1 << 30
 INT64_MAX = (1 << 63) - 1
 # The JAX package pads its sorted "present" k-mers with 2^63 (uint64) and
@@ -236,26 +251,35 @@ def _bucket_meta(tables: PackedTables, q: torch.Tensor):
     return _lane(g, 6), sz
 
 
-def _scan_deep(tables: PackedTables, q: torch.Tensor):
-    """Scan the deep buckets (2 < size <= SCAN_CAP, or dup2) of queries
-    ``q``: one pass per bucket depth, each keeping only the queries whose
-    bucket is still deeper. Returns (query index, matched row) pairs."""
-    start, sz = _bucket_meta(tables, q)
-    ids = torch.arange(q.shape[0], device=q.device)
+def _bucket_hits_from_ranges(q: torch.Tensor, table_kmers: torch.Tensor,
+                             start: torch.Tensor, size: torch.Tensor):
+    """Every row of each query's range [start, start + size) that holds
+    the query k-mer, scanned by depth: pass j keeps only the queries whose
+    range is longer than j. Returns (query index, matched row) pairs,
+    depth by depth (JAX _bucket_hits_from_ranges without its dense
+    (queries, max_scan) matrix)."""
+    ids = torch.nonzero(size > 0).flatten()
+    q, start, size = q[ids], start[ids], size[ids]
     hit_ids, hit_rows = [], []
     j = 0
     while q.shape[0]:
         rows = start + j
-        m = tables.ks[rows] == q
+        m = table_kmers[rows] == q
         hit_ids.append(ids[m])
         hit_rows.append(rows[m])
         j += 1
-        keep = sz > j
-        q, start, sz, ids = q[keep], start[keep], sz[keep], ids[keep]
+        keep = size > j
+        q, start, size, ids = q[keep], start[keep], size[keep], ids[keep]
     if not hit_ids:
-        empty = torch.zeros(0, dtype=torch.int64, device=q.device)
-        return empty, empty
+        return ids, ids.clone()
     return torch.cat(hit_ids), torch.cat(hit_rows)
+
+
+def _scan_deep(tables: PackedTables, q: torch.Tensor):
+    """Scan the deep buckets (2 < size <= SCAN_CAP, or dup2) of queries
+    ``q`` against the internally sorted rows. Returns (query index,
+    matched row) pairs."""
+    return _bucket_hits_from_ranges(q, tables.ks, *_bucket_meta(tables, q))
 
 
 def _ultra_matches(tables: PackedTables, uniq: torch.Tensor):
@@ -317,36 +341,213 @@ def packed_byte_budget(device: torch.device) -> int:
     return total // 4
 
 
+# -- the CSR bucket scan and batched get ---------------------------------------
+
+def _ranges_from_tables(queries, starts_tbl, sizes_tbl, modulo: int):
+    """Per-query (start, size) row range via the modulo-sized bucket
+    tables: two gathers per query."""
+    b = queries % modulo
+    return starts_tbl[b].to(torch.int64), sizes_tbl[b].to(torch.int64)
+
+
+def _ref_bucket_ranges(qb: torch.Tensor, tb: torch.Tensor):
+    """Per-query (start, size) row range under the reference modulo
+    without the modulo-sized tables: searchsorted left and right of each
+    query bucket ``qb`` in the bucket column ``tb`` of the bucket-sorted
+    rows. The JAX package gets the same ranks from one merged stable sort
+    of table and query keys."""
+    qb = qb.to(tb.dtype)
+    left = torch.searchsorted(tb, qb)
+    return left, torch.searchsorted(tb, qb, right=True) - left
+
+
+def _bucket_hits(queries, table_kmers, starts_tbl, sizes_tbl, modulo: int):
+    """(query index, matched row) pairs via the bucket tables."""
+    start, size = _ranges_from_tables(queries, starts_tbl, sizes_tbl, modulo)
+    return _bucket_hits_from_ranges(queries, table_kmers, start, size)
+
+
+def _node_counts(queries, table_kmers, table_nodes, starts_tbl, sizes_tbl,
+                 modulo: int, n_nodes: int) -> torch.Tensor:
+    """int64 hit counts per node (nodes >= n_nodes dropped) by the CSR
+    scan."""
+    _ids, rows = _bucket_hits(queries, table_kmers, starts_tbl, sizes_tbl,
+                              modulo)
+    counts = torch.zeros(n_nodes, dtype=torch.int64, device=queries.device)
+    _add_node_hits(counts, table_nodes[rows])
+    return counts
+
+
+def _has_kmers(queries, table_kmers, starts_tbl, sizes_tbl,
+               modulo: int) -> torch.Tensor:
+    """bool membership per query by the CSR scan."""
+    ids, _rows = _bucket_hits(queries, table_kmers, starts_tbl, sizes_tbl,
+                              modulo)
+    hit = torch.zeros(queries.shape[0], dtype=torch.bool,
+                      device=queries.device)
+    hit[ids] = True
+    return hit
+
+
+def _get_batched(queries, table_kmers, table_nodes, table_ref_offsets,
+                 table_frequencies, table_allele_frequencies, start, size,
+                 hit_cap: int, freq_cap: int) -> torch.Tensor:
+    """The (5, n_hits) int64 rows [node, ref_offset, query index,
+    frequency, int(allele_frequency * 1000)] of every hit, by query, then
+    by row within the bucket (JAX _get_batched_kernel). A query whose
+    bucket holds more than ``hit_cap`` rows is skipped whole, a row whose
+    frequency exceeds ``freq_cap`` alone. The hits are counted before the
+    output is allocated, so no capacity is guessed."""
+    size = torch.where(size <= hit_cap, size, 0)
+    ids, rows = _bucket_hits_from_ranges(queries, table_kmers, start, size)
+    keep = table_frequencies[rows] <= freq_cap
+    ids, rows = ids[keep], rows[keep]
+    # the scan yields hits depth by depth; a stable sort by query keeps
+    # each query's rows in bucket order
+    order = torch.argsort(ids, stable=True)
+    ids, rows = ids[order], rows[order]
+    out = torch.empty((5, ids.shape[0]), dtype=torch.int64,
+                      device=queries.device)
+    out[0] = table_nodes[rows]
+    out[1] = table_ref_offsets[rows]
+    out[2] = ids
+    out[3] = table_frequencies[rows]
+    # float32 product, truncated, as the JAX package computes it
+    out[4] = (table_allele_frequencies[rows] * 1000).to(torch.int64)
+    return out
+
+
+def as_device_tensor(value, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """A column (numpy array or tensor) as a ``dtype`` tensor on
+    ``device``; a tensor already there in that dtype is not copied. uint64
+    values (hashes, offsets < 2^63) keep their bits as int64."""
+    if not isinstance(value, torch.Tensor):
+        a = np.ascontiguousarray(value)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        elif a.dtype.kind == "u":
+            a = a.astype(np.int64)
+        value = torch.from_numpy(a)
+    return value.to(device, dtype)
+
+
 class DeviceKmerIndex:
-    """Packed-record lookup over the rows (kmers, nodes) of a
-    collision-free index, on the device that holds them. The record table
-    is built at first use."""
+    """Device view of a KmerIndex (models.kmer_index): the packed-record
+    lookup, the CSR bucket scan and ``get_batched``, on the index's device.
 
-    def __init__(self, kmers: torch.Tensor, nodes: torch.Tensor):
-        if kmers.device != nodes.device:
-            raise ValueError("kmers and nodes must share a device")
-        self.kmers = kmers
-        self.nodes = nodes
-        self.device = kmers.device
-        self._tables = None
+    Columns move to the device LAZILY, per query path, as in the JAX
+    package: the packed map/has path reads only kmers and nodes; the
+    modulo-sized bucket tables and the other row columns move when the CSR
+    path or ``get_batched`` reads them. A placeholder column (from
+    remove_ref_offsets / remove_frequencies, or no allele frequencies)
+    reads as zeros. The budgets below are class attributes that an
+    instance may override."""
 
-    def packed(self) -> PackedTables:
-        if self._tables is None:
-            modulo2 = internal_modulo(int(self.kmers.shape[0]))
-            need = record_rows(modulo2) * 32
-            budget = packed_byte_budget(self.device)
-            if need > budget:
-                raise NotImplementedError(
-                    f"packed records need {need} bytes, over this device's "
-                    f"budget of {budget}; the CSR lookup path that serves "
-                    "larger tables is not ported yet (ROADMAP.md)")
-            self._tables = build_packed(self.kmers, self.nodes, modulo2)
-        return self._tables
+    _LAZY = {
+        "table_kmers": ("kmers", torch.int64),
+        "table_nodes": ("nodes", torch.int64),
+        "table_ref_offsets": ("ref_offsets", torch.int64),
+        "table_frequencies": ("frequencies", torch.int32),
+        "table_allele_frequencies": ("allele_frequencies", torch.float32),
+        "starts_tbl": ("hashes_to_index", torch.int32),
+        "sizes_tbl": ("n_kmers", torch.int32),
+    }
+    _ZERO_IF_PLACEHOLDER = ("table_ref_offsets", "table_frequencies",
+                            "table_allele_frequencies")
+
+    # modulo-sized bucket tables (12 bytes per bucket, as the JAX package
+    # counts them) below this are cheap to move and keep; above it,
+    # get_batched takes its ranges from a searchsorted over the n-sized
+    # bucket column
+    BUCKET_TABLE_BYTE_BUDGET = 256 << 20
+    # records above this fall back to the CSR path; None: a quarter of
+    # the device (packed_byte_budget)
+    PACKED_BYTE_BUDGET = None
+
+    def __init__(self, host_index):
+        self._host = host_index
+        self._cache = {}
+        self.device = host_index.device
+        self.modulo = int(host_index.modulo)
+        self._max_scan = None
+        self._packed_tables = None
+
+    def __getattr__(self, name):
+        spec = DeviceKmerIndex._LAZY.get(name)
+        if spec is None:
+            raise AttributeError(name)
+        if name not in self._cache:
+            attr, dtype = spec
+            value = getattr(self._host, attr)
+            n = int(self._host.kmers.shape[0])
+            if name in self._ZERO_IF_PLACEHOLDER and (
+                    value is None or np.ndim(value) == 0
+                    or np.shape(value)[0] != n):
+                value = torch.zeros(n, dtype=dtype)
+            if value is None:
+                raise ValueError(
+                    f"the index has no {attr} column; the CSR path needs "
+                    "the bucket layout (KmerIndex.from_rows or from_file)")
+            self._cache[name] = as_device_tensor(value, dtype, self.device)
+        return self._cache[name]
+
+    def _bucket_tables_cheap(self) -> bool:
+        """True when get_batched should take its ranges from the bucket
+        tables (two gathers per query): this view already holds them on
+        the device, or they fit BUCKET_TABLE_BYTE_BUDGET. (The JAX package
+        also takes tables that its device build left in HBM; the port's
+        build leaves tensors that this view reads like any other column.)"""
+        return ("starts_tbl" in self._cache
+                or self.modulo * 12 <= self.BUCKET_TABLE_BYTE_BUDGET)
+
+    @property
+    def sorted_buckets(self) -> torch.Tensor:
+        """Reference-modulo bucket of each (bucket-sorted) row: n-sized,
+        where the bucket tables are modulo-sized. int32 when 2 * modulo + 2
+        fits, as in the JAX package."""
+        if "sorted_buckets" not in self._cache:
+            dtype = (torch.int32 if 2 * self.modulo + 2 < 2 ** 31
+                     else torch.int64)
+            self._cache["sorted_buckets"] = (
+                self.table_kmers % self.modulo).to(dtype)
+        return self._cache["sorted_buckets"]
+
+    @property
+    def max_scan(self) -> int:
+        """The deepest bucket's size (at least 1), from the host's sizes
+        column, without moving it."""
+        if self._max_scan is None:
+            sizes = self._host.n_kmers
+            if sizes is None:
+                raise ValueError("the index has no n_kmers column")
+            self._max_scan = (max(1, int(sizes.max())) if len(sizes)
+                              else 1)
+        return self._max_scan
+
+    def packed(self) -> PackedTables | None:
+        """The packed tables, built at first use; None when the records
+        exceed PACKED_BYTE_BUDGET, and then map/has take the CSR path."""
+        if self._packed_tables is None:
+            modulo2 = internal_modulo(int(self._host.kmers.shape[0]))
+            budget = (packed_byte_budget(self.device)
+                      if self.PACKED_BYTE_BUDGET is None
+                      else self.PACKED_BYTE_BUDGET)
+            if record_rows(modulo2) * 32 > budget:
+                self._packed_tables = False
+            else:
+                self._packed_tables = build_packed(
+                    self.table_kmers, self.table_nodes, modulo2)
+        return self._packed_tables or None
 
     def map_kmers(self, queries: torch.Tensor, n_nodes: int) -> torch.Tensor:
         """int64 hit counts per node (nodes >= n_nodes dropped) for an
         int64 query tensor on this index's device."""
         t = self.packed()
+        if t is None:
+            return _node_counts(queries, self.table_kmers, self.table_nodes,
+                                self.starts_tbl, self.sizes_tbl, self.modulo,
+                                n_nodes)
         counts, cls = packed_decode(t.records, queries, queries.shape[0],
                                     t.modulo2, n_nodes)
         deep = torch.nonzero(cls == CLS_DEEP).flatten()
@@ -363,6 +564,9 @@ class DeviceKmerIndex:
     def has_kmers(self, queries: torch.Tensor) -> torch.Tensor:
         """bool membership per query of an int64 query tensor."""
         t = self.packed()
+        if t is None:
+            return _has_kmers(queries, self.table_kmers, self.starts_tbl,
+                              self.sizes_tbl, self.modulo)
         hit, cls = packed_decode(t.records, queries, queries.shape[0],
                                  t.modulo2)
         deep = torch.nonzero(cls == CLS_DEEP).flatten()
@@ -393,3 +597,23 @@ class DeviceKmerIndex:
         if not parts:
             return torch.zeros(0, dtype=torch.bool, device=self.device)
         return torch.cat(parts)
+
+    def get_batched(self, queries: torch.Tensor, max_hits=10,
+                    hit_cap=DEFAULT_HIT_CAP,
+                    frequency_cap=DEFAULT_FREQUENCY_CAP) -> torch.Tensor:
+        """(5, n_hits) int64 [node, ref_offset, query index, frequency,
+        int(1000 * allele_frequency)] for an int64 query tensor: the
+        CythonKmerIndex.get contract as the JAX package keeps it (queries
+        whose bucket holds more than ``hit_cap`` rows skipped, rows with
+        frequency above ``frequency_cap`` skipped, bucket-0 queries looked
+        up like any other; PARITY.md). ``max_hits`` is unused, as there."""
+        if self._bucket_tables_cheap():
+            start, size = _ranges_from_tables(queries, self.starts_tbl,
+                                              self.sizes_tbl, self.modulo)
+        else:
+            start, size = _ref_bucket_ranges(queries % self.modulo,
+                                             self.sorted_buckets)
+        return _get_batched(queries, self.table_kmers, self.table_nodes,
+                            self.table_ref_offsets, self.table_frequencies,
+                            self.table_allele_frequencies, start, size,
+                            hit_cap, frequency_cap)

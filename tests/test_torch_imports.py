@@ -34,6 +34,38 @@ def test_port_imports_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_RUN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["graph_kmer_index_tpu"] = None
+import numpy as np, torch
+from graph_kmer_index_tpu_torch import KmerIndex
+from graph_kmer_index_tpu_torch.ops import primitives
+rng = np.random.default_rng(0)
+kmers = rng.integers(0, 1 << 40, 500).astype(np.uint64)
+index = KmerIndex.from_rows(kmers, np.arange(500) % 7, np.arange(500),
+                            np.ones(500, np.float32), 101, device="cpu")
+index.device_index.PACKED_BYTE_BUDGET = 0
+assert index.map_kmers(kmers, 7).sum() == 500
+assert index.get_batched(kmers[:50]).shape == (5, 50)
+assert kmers[3] in index
+idx = torch.arange(1024, dtype=torch.int32) % 64
+assert primitives.gather_loop(idx, torch.ones((64, 2), dtype=torch.int32),
+                              256).tolist() == [256] * 4
+assert int(primitives.rmw_loop(idx, 64, 2)[:, 0].sum()) == 1024
+print("ok")
+"""
+
+
+def test_port_lookup_runs_without_jax():
+    """The CSR path, get_batched, the get API and the probes' twins run
+    with jax and the JAX package unimportable."""
+    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+graph_kmer_index_tpu\b"
     r"(?!_torch)|from\s+graph_kmer_index_tpu\b(?!_torch))", re.M)

@@ -156,8 +156,19 @@ def test_padding_past_n_valid_is_ignored():
 
 
 def test_over_budget_raises(monkeypatch):
-    kmers, nodes, modulo = _table("random")
-    port = KmerIndex.from_arrays(kmers, nodes, modulo, device="cpu")
+    """Records over the device's budget no longer raise: map and has fall
+    back to the CSR bucket scan, as the JAX package's do, with its
+    results."""
+    index = _jax_index("random")
+    port = KmerIndex.from_jax_state(
+        index._kmers, index._nodes, index._modulo, device="cpu",
+        hashes_to_index=index._hashes_to_index, n_kmers=index._n_kmers)
     monkeypatch.setattr(torch_lookup, "packed_byte_budget", lambda dev: 1024)
-    with pytest.raises(NotImplementedError, match="CSR"):
-        port.map_kmers(kmers[:10], 10)
+    queries = _queries("random", np.asarray(index._kmers), 1009,
+                       np.random.default_rng(8))
+    n_nodes = int(np.max(index._nodes)) + 1
+    assert np.array_equal(port.map_kmers(queries, n_nodes), np.asarray(
+        index.map_kmers(queries, n_nodes), dtype=np.int64))
+    assert np.array_equal(port.has_kmers(queries),
+                          np.asarray(index.has_kmers(queries)))
+    assert port.device_index.packed() is None

@@ -66,10 +66,65 @@ def test_smoke_hashing_phase_on_cpu(capsys):
     assert "the P16 and the P8 route's k=31 rows == K1's" in out
 
 
+def test_smoke_lookup_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    args = cs.parse_args(["--genome-bases", "120000", "--reads", "1500"])
+    state = cs.main_path(dev, "CPU", args, tmp_path)
+    # bench_primitives.py's small sizes
+    probes = cs.probe_inputs(dev, gen, 1 << 12, 1 << 10, 2048, 32)
+    lk = cs.lookup_path(dev, "CPU", state, probes, 100_003, 4096, gen)
+    assert lk["default_route"] == "tables"  # 1.2 MB of tables: cheap
+    assert lk["csr"].device_index.packed() is None
+    assert lk["get_searched"].shape[1] > 1000
+    errs = cs.check_lookup(dev, state, lk, 500, gen)
+    assert errs == {name: {"max_abs_err": 0} for name in cs.LOOKUP_KERNELS}
+    cs.profile_lookup(dev, "CPU", state, tmp_path / "profile.txt",
+                      lk["csr"])
+    assert "== CSR map_kmers" in (tmp_path / "profile.txt").read_text()
+
+    def host_pair(dev, kernel, plain, reps, what, compare=cs.assert_equal):
+        return 1.0, 2.0, (1.0, 1.0, 2.0, 2.0), compare(kernel(), plain(),
+                                                        what)
+
+    # the CUDA-event timer needs a card: compare the timed calls only
+    monkeypatch.setattr(cs, "time_pair", host_pair)
+    timed = cs.time_lookup(dev, "CPU", state, lk)
+    assert sorted(timed) == sorted(cs.LOOKUP_KERNELS)
+    out = capsys.readouterr().out
+    assert "CSR counts and membership == the packed path's" in out
+    assert "== the join on 500 sampled queries" in out
+    assert "timing get_batched on 4096 queries" in out
+    # a broken route is caught
+    lk["get_tables"] = lk["get_tables"][:, 1:]
+    with pytest.raises(AssertionError, match="searchsorted route"):
+        cs.check_lookup(dev, state, lk, 500, gen)
+
+
+def test_smoke_join_applies_the_caps(tmp_path):
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    args = cs.parse_args(["--genome-bases", "60000", "--reads", "400"])
+    state = cs.main_path(dev, "CPU", args, tmp_path)
+    probes = cs.probe_inputs(dev, gen, 1 << 12, 1 << 10, 2048, 32)
+    lk = cs.lookup_path(dev, "CPU", state, probes, 1009, 2048, gen)
+    sample = torch.arange(2048)
+    for hit_cap, freq_cap in ((10000, 20), (50, 3), (cs.CAPS_OFF,
+                                                     cs.CAPS_OFF)):
+        want = lk["tabled"].get_batched(lk["q"], hit_cap=hit_cap,
+                                        frequency_cap=freq_cap)
+        assert torch.equal(cs.join_rows(state, lk, sample, hit_cap,
+                                        freq_cap), want)
+
+
 def test_smoke_requires_each_paths_kernels():
     cs = _smoke()
-    assert (sorted(cs.READ_MAPPING_KERNELS + cs.HASHING_KERNELS)
-            == sorted(_kernels.launch_counts))
+    assert (sorted(cs.READ_MAPPING_KERNELS + cs.HASHING_KERNELS
+                   + cs.LOOKUP_KERNELS) == sorted(_kernels.launch_counts))
     launches = dict.fromkeys(_kernels.launch_counts, 1)
     cs.require_launches(launches, cs.HASHING_KERNELS, "hashing path")
     launches["stream_sum"] = 0
@@ -136,7 +191,10 @@ def test_synthetic_genome_and_reads(tmp_path):
     ("K2_REPLACES", "def _decode_group_rows("),
     ("K3_REPLACES", "def _pack_kernel("),
     ("K4_REPLACES", "def k_pallas_stream_copy("),
-    ("K5_REPLACES", "def k_pallas_stream_sum(")])
+    ("K5_REPLACES", "def k_pallas_stream_sum("),
+    ("K6_REPLACES", "def k_pallas_gather_loop("),
+    ("K7_REPLACES", "def k_pallas_rmw_loop("),
+    ("K8_REPLACES", "def k_pallas_bcast_cmp(")])
 def test_smoke_names_the_replaced_code(attr, function):
     """The file:line each kernel reports as replaced is that function."""
     path, line = getattr(_smoke(), attr).rsplit(":", 1)
