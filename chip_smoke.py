@@ -15,19 +15,27 @@
    segments) is hashed by K1 into an index of every window (node =
    position // 32 + 1); 1,000,000 reads of 150 bp with 1% substitutions
    are written as FASTA, parsed, hashed on the card (forward and reverse
-   complement) and mapped to node counts and membership through K2.
+   complement) and mapped to node counts and membership through K2,
+   one launch per read segment and mode and no trip to the host between
+   the query classes.
 5. Checks the counts and membership against an independent
    sort-and-search join on the card, 1,000 reads' hashes against numpy,
    and that K1 and K2 were launched by step 4 (each path's launches are
    counted from 0 just before it and read just after it).
 6. Holds K1 and K2 against their plain twins (bit-exact) on exactly the
-   main path's inputs: K1 on the genome, K2 in counts and membership
-   mode on every read segment, which between them hold queries of all
-   three classes (final, deep, ultra). Then K2 on 2^22 queries, half of
-   them hits and 1% of them in the poly-A run's ultra bucket.
+   main path's inputs: K1 on the genome, K2 (the whole packed lookup)
+   in counts and membership mode on every read segment, which between
+   them hold queries of all three classes (final, deep, ultra; counted
+   with the twin's classifier). Then K2 on 2^22 queries, half of them
+   hits and 1% of them in the poly-A run's ultra bucket.
 7. Times both kernels against their twins at the main path's shapes
    (CUDA events, plain / kernel / kernel / plain), and raises unless
-   the timed outputs of kernel and twin are equal.
+   the timed outputs of kernel and twin are equal. Every kernel also
+   gets its bound (the least time the card could take: the bytes it
+   must move at PEAK_BYTES_PER_S, or for K8 its integer operations at
+   PEAK_INT32_OPS_PER_S) and, where one PyTorch call computes the same
+   function, that call's time (clone() for K4, a row sum for K5,
+   bincount for K7), timed here and used nowhere in the port.
 8. The hashing path. Holds K3 (P16 and P8) against its twin, bit-exact,
    on 2^26 random bases and on lengths 1, 31 and 1,000,003, for k in
    PACK_KS. Then drives the path on the main path's genome: the k = 31
@@ -36,8 +44,9 @@
    (stream_copy) and K5 (stream_sum) on a random 512 MiB float32 table;
    checks that K3 (both modes), K4 and K5 were launched; holds K3
    against its twin on the genome, both routes' rows against K1's, K4
-   against the table (exact) and K5 against a float64 sum (relative
-   1e-4). Times K3, K4 and K5 against their twins and both routes
+   against the table (exact, and on a length below one tile and one
+   that is no multiple of the tile) and K5 against a float64 sum
+   (relative 1e-4). Times K3, K4 and K5 against their twins and both routes
    against K1, and prints bytes/s and each hashing kernel's share of the
    copy rate that K4 measured.
 9. The lookup path (its launches counted from 0 as well). Builds a CSR
@@ -56,9 +65,12 @@
    frequency <= max_hits; and each probe against its twin (exact). Times
    the probes against their twins, the CSR map/has against the packed
    path and the two get_batched routes against each other.
-10. With ``--profile PATH``: torch.profiler over a second call of
-   map_kmers and of has_kmers, by the packed and by the CSR path; a
-   summary line each on stdout, the operator tables in PATH.
+10. torch.profiler over a second packed call of map_kmers and of
+   has_kmers: a summary line each on stdout with the call's host syncs
+   (the ops that wait, by name, the runtime's synchronize calls and the
+   copies to the host), which must not exceed two a read segment.
+   With ``--profile PATH`` the CSR calls are profiled too and the
+   operator tables are written to PATH.
 
 Any failed check raises before the last line, which is
 ``{"ok": true, "device": {...}}``.
@@ -102,7 +114,7 @@ K8_REPLACES = "benchmarks/bench_primitives.py:224"
 K = 31
 READ_LEN = 150
 PACK_KS = (1, 5, 8, 9, 12, 15, 16, 17, 21, 31)
-READ_MAPPING_KERNELS = ("sliding_hash", "packed_decode")
+READ_MAPPING_KERNELS = ("sliding_hash", "packed_lookup")
 HASHING_KERNELS = ("sliding_pack_p16", "sliding_pack_p8", "stream_copy",
                    "stream_sum")
 LOOKUP_KERNELS = ("gather_loop", "rmw_loop", "bcast_cmp")
@@ -117,6 +129,18 @@ CAPS_OFF = (1 << 31) - 1
 # hash), 4 (P16) or 2 (P8) out
 BYTES_PER_BASE = {"K1 sliding_hash": 9, "K3 P16": 5, "K3 P8": 3}
 SUM_RTOL = 1e-4  # the JAX benchmark's own bound (bench_primitives.py:420)
+# The card's published peaks, which every bound is stated against (NVIDIA's
+# H100 SXM data sheet): 3.35 TB/s of device memory; 67 TFLOP/s of float32
+# outside the tensor cores is 33.5 T instructions a second on 128 float32
+# lanes per SM, and an SM has 64 int32 lanes, so 16.75 T int32 operations.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 16.75e12
+# integer operations of one (query, entry) compare in K8: the compare of
+# lo, the compare of hi joined with it (one predicate instruction), the
+# add to the count, the select of the first node
+CMP_OPS = 4
+# ops that make the host wait for the device
+SYNC_OPS = ("aten::nonzero", "aten::item", "aten::_local_scalar_dense")
 
 
 def card_line() -> str:
@@ -210,6 +234,51 @@ def require_launches(launches: dict, names, path: str) -> None:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"{path}")
+
+
+def bound(nbytes: float = 0, ops: float = 0) -> dict:
+    """The least time the card could take: the larger of bytes over its
+    memory rate and operations over its int32 rate, with what bounds it."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def time_one(dev, fn, reps) -> float:
+    """CUDA-event mean over ``reps`` calls after one warm-up, in ms."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
+
+
+def classify(t, q) -> torch.Tensor:
+    """0 final, 1 deep, 2 ultra per query, by the twin's classifier (counts
+    mode)."""
+    return lookup.packed_decode_plain(t.records, q, q.shape[0], t.modulo2,
+                                      0)[1]
+
+
+def query_classes(t, q) -> torch.Tensor:
+    """final/deep/ultra counts of the queries."""
+    return torch.bincount(classify(t, q).to(torch.int64), minlength=3)
+
+
+def k2_bytes(t, q, n_nodes) -> int:
+    """Bytes a packed lookup (counts) of ``q`` must move: per query 8 of
+    query and one 32-byte record, the counts written once, and for every
+    distinct k-mer that its record does not answer the k-mers of its
+    bucket's rows and the nodes of the rows that match."""
+    uniq = torch.unique(q[classify(t, q) > 0])
+    scanned = int(lookup._bucket_meta(t, uniq)[1].sum())
+    matched = lookup._ultra_matches(t, uniq)[1].shape[0]
+    return q.shape[0] * 40 + n_nodes * 8 + (scanned + matched) * 8
 
 
 def main_path(dev, card, args, workdir):
@@ -340,15 +409,12 @@ def check_at_main_shapes(state, k) -> tuple[int, int]:
     for seg in segments:
         n = seg.shape[0]
         for mode in (n_nodes, None):
-            got = lookup.packed_decode(t.records, seg, n, t.modulo2, mode)
             k2_err = max(k2_err, assert_equal(
-                got, lookup.packed_decode_plain(t.records, seg, n,
-                                                t.modulo2, mode),
+                lookup.packed_lookup(t, seg, n, mode),
+                lookup.packed_lookup_plain(t, seg, n, mode),
                 f"K2 ({'counts' if mode else 'membership'}) on a main-path "
                 f"segment of {n} queries"))
-            if mode is not None:
-                cls += torch.bincount(got[1].to(torch.int64), minlength=3)
-            del got
+        cls += query_classes(t, seg)
     cls = cls.tolist()
     if min(cls) == 0:
         raise AssertionError(f"main-path queries miss a class: final/deep/"
@@ -361,9 +427,11 @@ def check_at_main_shapes(state, k) -> tuple[int, int]:
 
 
 def check_k2(dev, state, n_q, gen) -> int:
-    """K2 == plain twin (counts, membership and classes) on n_q queries:
-    half of them table hits, 1% rows of buckets deeper than SCAN_CAP
-    (the planted poly-A run's), so that every class is compared."""
+    """K2 == plain twin (counts and membership) on n_q queries: half of
+    them table hits, 1% rows of buckets deeper than SCAN_CAP (the planted
+    poly-A run's), the first 64th of them one such k-mer over and over,
+    the last 1,000 padding past n_valid, so that every class is
+    compared."""
     t = state["tables"]
     n_nodes = state["n_nodes"]
     _, run = torch.unique_consecutive(t.ks % t.modulo2, return_counts=True)
@@ -380,19 +448,29 @@ def check_k2(dev, state, n_q, gen) -> int:
         torch.randint(0, 1 << 62, (n_q - half - n_ultra,), device=dev,
                       generator=gen)])
     q = q[torch.randperm(n_q, device=dev, generator=gen)]
+    # a run of one ultra k-mer: every query of a tile on one table slot
+    q[:n_q // 64] = ultra_rows[0]
+    n_valid = n_q - min(1000, n_q // 4)
     err = 0
     for mode in (n_nodes, None):
-        got = lookup.packed_decode(t.records, q, n_q, t.modulo2, mode)
         err = max(err, assert_equal(
-            got, lookup.packed_decode_plain(t.records, q, n_q, t.modulo2,
-                                            mode),
+            lookup.packed_lookup(t, q, n_valid, mode),
+            lookup.packed_lookup_plain(t, q, n_valid, mode),
             f"K2 ({'counts' if mode else 'membership'}) on {n_q} queries"))
-        if mode is not None:
-            cls = torch.bincount(got[1].to(torch.int64), minlength=3).tolist()
+    # batches below and just over one tile of the kernel
+    for n in (1, 255, 257):
+        for mode in (n_nodes, None):
+            err = max(err, assert_equal(
+                lookup.packed_lookup(t, q[:n], n, mode),
+                lookup.packed_lookup_plain(t, q[:n], n, mode),
+                f"K2 on {n} queries"))
+    cls = query_classes(t, q[:n_valid]).tolist()
     if min(cls) == 0:
-        raise AssertionError(f"K2 check misses a class: final/deep/ultra {cls}")
-    print(f"K2 == plain (bit-exact) on {n_q} queries, counts and membership; "
-          f"classes final/deep/ultra {cls}", flush=True)
+        raise AssertionError(f"K2 check misses a class: final/deep/ultra "
+                             f"{cls}")
+    print(f"K2 == plain (bit-exact) on {n_q} queries ({n_valid} valid), "
+          f"counts and membership; classes final/deep/ultra {cls}",
+          flush=True)
     return err
 
 
@@ -422,10 +500,11 @@ def time_pair(dev, kernel, plain, reps, what, compare=assert_equal):
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2), err
 
 
-def time_kernels(dev, card, state, k):
+def time_kernels(dev, card, state, k) -> dict:
     """Both kernels against their twins on the main path's inputs, each
     timed output also compared: K1 on the genome, K2 (counts) on the
-    largest read segment. Returns (ms, plain ms, max abs error) each."""
+    largest read segment. Returns {name: the kernels line's measured
+    fields}."""
     genome = state["genome"]
     genome_bases = genome.shape[0]
     k1_ms, k1_plain, raw1, k1_err = time_pair(
@@ -436,26 +515,29 @@ def time_kernels(dev, card, state, k):
     seg = max(state["read_kmers"].segments, key=lambda s: s.shape[0])
     n_nodes = state["n_nodes"]
     k2_ms, k2_plain, raw2, k2_err = time_pair(
-        dev,
-        lambda: lookup.packed_decode(t.records, seg, seg.shape[0],
-                                     t.modulo2, n_nodes),
-        lambda: lookup.packed_decode_plain(t.records, seg, seg.shape[0],
-                                           t.modulo2, n_nodes), 3,
+        dev, lambda: lookup.packed_lookup(t, seg, seg.shape[0], n_nodes),
+        lambda: lookup.packed_lookup_plain(t, seg, seg.shape[0], n_nodes), 3,
         "K2 (counts) timed on the largest read segment")
-    cls = torch.bincount(
-        lookup.packed_decode(t.records, seg, seg.shape[0], t.modulo2,
-                             n_nodes)[1].to(torch.int64), minlength=3)
+    has_ms = time_one(dev, lambda: lookup.packed_lookup(t, seg, seg.shape[0]),
+                      3)
+    b1 = bound(BYTES_PER_BASE["K1 sliding_hash"] * genome_bases)
+    b2 = bound(k2_bytes(t, seg, n_nodes))
     print(f"timing K1 sliding_hash, {genome_bases} bases k={k}: kernel "
           f"{k1_ms:.6f} ms ({genome_bases / k1_ms / 1e6:.3f} G bases/s), "
-          f"plain {k1_plain:.6f} ms, outputs equal; kernel,kernel,plain,"
-          f"plain = {raw1} [{card}]", flush=True)
-    print(f"timing K2 packed_decode (counts), {seg.shape[0]} queries: "
+          f"plain {k1_plain:.6f} ms, bound {b1['bound_ms']:.6f} ms, outputs "
+          f"equal; kernel,kernel,plain,plain = {raw1} [{card}]", flush=True)
+    print(f"timing K2 packed_lookup (counts), {seg.shape[0]} queries: "
           f"kernel {k2_ms:.6f} ms "
           f"({seg.shape[0] / k2_ms / 1e6:.3f} G queries/s), plain "
-          f"{k2_plain:.6f} ms, outputs equal; kernel,kernel,plain,plain = "
-          f"{raw2}; classes final/deep/ultra {cls.tolist()} [{card}]",
-          flush=True)
-    return (k1_ms, k1_plain, k1_err), (k2_ms, k2_plain, k2_err)
+          f"{k2_plain:.6f} ms, bound {b2['bound_ms']:.6f} ms, outputs equal; "
+          f"kernel,kernel,plain,plain = {raw2}; membership mode "
+          f"{has_ms:.6f} ms; classes final/deep/ultra "
+          f"{query_classes(t, seg).tolist()} [{card}]", flush=True)
+    return {"sliding_hash": {"max_abs_err": k1_err, "ms": k1_ms,
+                             "plain_ms": k1_plain, **b1, "library_ms": None},
+            "packed_lookup": {"max_abs_err": k2_err, "ms": k2_ms,
+                              "plain_ms": k2_plain, **b2,
+                              "library_ms": None}}
 
 
 def check_k3(dev, n_random: int, gen) -> int:
@@ -500,6 +582,11 @@ def hashing_path(dev, card, genome, stream_rows, block_rows, gen):
                          generator=gen)
     out.update(table=table, seed=seed, block_rows=block_rows)
     out["copy"] = st.run("stream_copy (K4)", primitives.stream_copy, table)
+    # below one tile of K4, and whole tiles plus a ragged last one
+    words = table.view(-1, 4)
+    tile = primitives.COPY_TILE_BYTES // 16
+    out["ragged"] = [(n, primitives.stream_copy(words[:n]))
+                     for n in (5, min(1000 * tile + 37, words.shape[0] - 1))]
     out["sums"] = st.run("stream_sum (K5)", primitives.stream_sum, table,
                          seed, block_rows)
     return out
@@ -525,7 +612,9 @@ def check_hashing(state, h) -> dict:
     errs["stream_copy"] = {"max_abs_err": max(
         assert_equal(h["copy"], table, "K4 against its source"),
         assert_equal(h["copy"], primitives.stream_copy_plain(table),
-                     "K4 against clone()"))}
+                     "K4 against clone()"),
+        *(assert_equal(got, table.view(-1, 4)[:n], f"K4 on {n} words")
+          for n, got in h["ragged"]))}
     n_blocks = table.shape[0] // block_rows
     exact = table.view(n_blocks, -1).double().sum(1) + float(seed[0])
     rel = assert_close_sums(h["sums"], exact, "K5 against a float64 sum")
@@ -536,16 +625,20 @@ def check_hashing(state, h) -> dict:
     print(f"K3 == plain (bit-exact), P16 and P8, on the main path's "
           f"{genome.shape[0]} bases; the P16 and the P8 route's k={K} rows "
           f"== K1's (bit-exact); K4 == source and clone() (exact) on "
-          f"{table.numel() * 4} bytes; K5 within {rel:.3e} relative (bound "
-          f"{SUM_RTOL}) of a float64 sum over {n_blocks} blocks", flush=True)
+          f"{table.numel() * 4} bytes and on "
+          f"{[n * 16 for n, _ in h['ragged']]} bytes (tile "
+          f"{primitives.COPY_TILE_BYTES}); K5 within {rel:.3e} relative "
+          f"(bound {SUM_RTOL}) of a float64 sum over {n_blocks} blocks",
+          flush=True)
     return errs
 
 
 def time_hashing(dev, card, state, h, reps=10):
     """K3 (both modes), K4 and K5 against their twins, and the whole P16
     and P8 routes against K1, on the hashing path's inputs; every timed
-    output is compared. Prints the rates; returns {name: (ms, plain ms)}
-    for the kernels."""
+    output is compared; clone() beside K4 and a row sum beside K5 as the
+    one PyTorch call that computes the same function. Prints the rates;
+    returns {name: the kernels line's timed fields}."""
     genome = state["genome"]
     n = genome.shape[0]
     table, seed, block_rows = h["table"], h["seed"], h["block_rows"]
@@ -562,6 +655,10 @@ def time_hashing(dev, card, state, h, reps=10):
         dev, lambda: primitives.stream_sum(table, seed, block_rows),
         lambda: primitives.stream_sum_plain(table, seed, block_rows), reps,
         "K5 timed", compare=assert_close_sums)
+    n_blocks = table.shape[0] // block_rows
+    library = {"stream_copy": time_one(dev, table.clone, reps),
+               "stream_sum": time_one(
+                   dev, lambda: table.view(n_blocks, -1).sum(1), reps)}
     routes = {}
     for m, route in ((16, encode.sliding_hashes_p16),
                      (8, encode.sliding_hashes_p8)):
@@ -571,12 +668,20 @@ def time_hashing(dev, card, state, h, reps=10):
             f"the P{m} route timed against K1")
 
     nbytes = table.numel() * 4
-    for name, moved in (("stream_copy", 2 * nbytes), ("stream_sum", nbytes)):
+    bounds = {"sliding_pack_p16": bound(BYTES_PER_BASE["K3 P16"] * n),
+              "sliding_pack_p8": bound(BYTES_PER_BASE["K3 P8"] * n),
+              "stream_copy": bound(2 * nbytes),
+              "stream_sum": bound(nbytes + 4 * n_blocks + 4)}
+    for name, moved, call in (
+            ("stream_copy", 2 * nbytes, "clone()"),
+            ("stream_sum", nbytes, f"view({n_blocks}, -1).sum(1)")):
         ms, plain_ms, raw, _ = timed[name]
         print(f"timing K{4 if name == 'stream_copy' else 5} {name}, "
               f"{nbytes} bytes: kernel {ms:.6f} ms "
               f"({moved / ms / 1e9:.3f} TB/s), plain {plain_ms:.6f} ms "
-              f"({moved / plain_ms / 1e9:.3f} TB/s); kernel,kernel,plain,"
+              f"({moved / plain_ms / 1e9:.3f} TB/s), bound "
+              f"{bounds[name]['bound_ms']:.6f} ms, one PyTorch call "
+              f"({call}) {library[name]:.6f} ms; kernel,kernel,plain,"
               f"plain = {raw} [{card}]", flush=True)
     copy_rate = 2 * nbytes / timed["stream_copy"][0] * 1e3
     k1_ms = (routes[16][1] + routes[8][1]) / 2
@@ -596,7 +701,9 @@ def time_hashing(dev, card, state, h, reps=10):
               f"K3 P{m} alone {kernel_ms:.6f} ms (plain {plain_ms:.6f} ms), "
               f"so the derivation takes {ms - kernel_ms:.6f} ms; "
               f"route,route,K1,K1 = {raw} [{card}]", flush=True)
-    return {name: t[:2] for name, t in timed.items()}
+    return {name: {"ms": t[0], "plain_ms": t[1], **bounds[name],
+                   "library_ms": library.get(name)}
+            for name, t in timed.items()}
 
 
 def probe_inputs(dev, gen, n_q, block_q, n_cmp, n_entries) -> dict:
@@ -785,7 +892,10 @@ def time_lookup(dev, card, state, lk, reps=100) -> dict:
     """The probes against their twins (means of ``reps`` launches, K8
     reps // 10), the CSR map/has against the packed path's and the two
     get_batched routes against each other; every timed output is
-    compared. Prints the rates; returns {probe: (ms, plain ms)}."""
+    compared; bincount beside K7 as the one PyTorch call that computes
+    its counts (no one call computes K6's wrapping block sums or K8's
+    count and first node). Prints the rates; returns {probe: the kernels
+    line's timed fields}."""
     p = lk["probes"]
     timed = {
         "gather_loop": time_pair(
@@ -803,14 +913,31 @@ def time_lookup(dev, card, state, lk, reps=100) -> dict:
             "K8 timed")}
     n_idx = p["idx"].shape[0]
     n_cmp, n_entries = p["cmp"][0].numel(), p["cmp"][2].shape[0]
+    rows, cols = p["table"].shape
+    idx64 = p["idx"].to(torch.int64)
+    library = {"rmw_loop": time_one(
+        dev, lambda: torch.bincount(idx64, minlength=rows), reps)}
+    # K6 reads the indices and column 0 and writes a sum per block; K7
+    # reads the indices and writes the whole counts table; K8 reads and
+    # writes two int32 per query and the table's three columns
+    bounds = {
+        "gather_loop": bound(4 * n_idx + 4 * rows
+                             + 4 * (n_idx // p["block_q"])),
+        "rmw_loop": bound(4 * n_idx + 4 * rows * cols),
+        "bcast_cmp": bound(16 * n_cmp + 12 * n_entries,
+                           CMP_OPS * n_cmp * n_entries)}
     for name, items, unit in (("gather_loop", n_idx, "gathers"),
                               ("rmw_loop", n_idx, "increments"),
                               ("bcast_cmp", n_cmp * n_entries, "compares")):
         ms, plain_ms, raw, _ = timed[name]
+        lib_ms = library.get(name)
         print(f"timing {name}: kernel {ms:.6f} ms ({items / ms / 1e6:.3f} G "
               f"{unit}/s), plain {plain_ms:.6f} ms "
-              f"({items / plain_ms / 1e6:.3f} G {unit}/s); kernel,kernel,"
-              f"plain,plain = {raw} [{card}]", flush=True)
+              f"({items / plain_ms / 1e6:.3f} G {unit}/s), bound "
+              f"{bounds[name]['bound_ms']:.6f} ms by "
+              f"{bounds[name]['bound_by']}, one PyTorch call "
+              f"{'(bincount) %.6f ms' % lib_ms if lib_ms else 'none'}; "
+              f"kernel,kernel,plain,plain = {raw} [{card}]", flush=True)
 
     csr, packed = lk["csr"].device_index, state["index"].device_index
     read_kmers, n_nodes = state["read_kmers"], state["n_nodes"]
@@ -836,7 +963,9 @@ def time_lookup(dev, card, state, lk, reps=100) -> dict:
           f"searchsorted route {ms_s:.6f} ms "
           f"({q.shape[0] / ms_s / 1e6:.3f} G queries/s); tables,tables,"
           f"searchsorted,searchsorted = {raw} [{card}]", flush=True)
-    return {name: t[:2] for name, t in timed.items()}
+    return {name: {"ms": t[0], "plain_ms": t[1], **bounds[name],
+                   "library_ms": library.get(name)}
+            for name, t in timed.items()}
 
 
 def _device_us(event) -> float:
@@ -848,8 +977,11 @@ def profile_lookup(dev, card, state, path, csr=None):
     """torch.profiler over a second call of map_kmers and of has_kmers
     (and, given the lookup path's CSR index, of its CSR map/has): per
     call, one summary line on stdout (host wall ms, the profiler's
-    self-time totals, and the K2, nonzero and device-to-host copy rows)
-    and the operator table in ``path``."""
+    self-time totals, the number of read segments and of host waits for
+    the device: the ops that wait, by name, the runtime's synchronize
+    calls and the copies to the host, of which the largest count is the
+    call's; and the K2, nonzero and device-to-host copy rows) and the
+    operator table in ``path``. Returns {call: host syncs}."""
     from torch.profiler import ProfilerActivity, profile
 
     index, read_kmers = state["index"], state["read_kmers"]
@@ -860,6 +992,8 @@ def profile_lookup(dev, card, state, path, csr=None):
         calls["CSR map_kmers"] = lambda: csr.map_kmers(read_kmers,
                                                        state["n_nodes"])
         calls["CSR has_kmers"] = lambda: csr.has_kmers(read_kmers)
+    n_seg = len(read_kmers.segments)
+    syncs = {}
     with open(path, "w") as out:
         for name, fn in calls.items():
             sync(dev)
@@ -875,13 +1009,63 @@ def profile_lookup(dev, card, state, path, csr=None):
             out.write(f"== {name}: wall {wall_ms:.3f} ms [{card}]\n{table}\n")
             totals = [line.strip() for line in table.splitlines()
                       if line.startswith("Self ") and "time total" in line]
+            events = prof.key_averages()
             rows = [f"{e.key[:40]!r} x{e.count} {_device_us(e):.1f} us"
-                    for e in prof.key_averages()
-                    if "packed_decode" in e.key or e.key == "aten::nonzero"
+                    for e in events
+                    if "packed_lookup" in e.key or e.key == "aten::nonzero"
                     or e.key.startswith("Memcpy DtoH")]
+            by_name = {op: sum(e.count for e in events if e.key == op)
+                       for op in SYNC_OPS}
+            # the same waits seen from below, which also shows one hidden
+            # in another op (unique, a copy to the host): the runtime's
+            # synchronize calls, less the one that ends this profile
+            waits = {e.key: e.count for e in events
+                     if e.key.startswith("cuda")
+                     and e.key.endswith("Synchronize")}
+            copies = sum(e.count for e in events
+                         if e.key.startswith("Memcpy DtoH"))
+            # item calls _local_scalar_dense: one wait, two names
+            syncs[name] = max(by_name["aten::nonzero"]
+                              + by_name["aten::_local_scalar_dense"],
+                              sum(waits.values()) - 1, copies)
             print(f"profile {name}: wall {wall_ms:.3f} ms; "
-                  f"{'; '.join(totals)}; self device time: "
-                  f"{', '.join(rows)} [{card}]", flush=True)
+                  f"{'; '.join(totals)}; host syncs {syncs[name]} over "
+                  f"{n_seg} read segments {by_name}, runtime waits {waits} "
+                  f"(one is this profile's own), copies to the host "
+                  f"{copies}; self device time: {', '.join(rows)} [{card}]",
+                  flush=True)
+    return syncs
+
+
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def kernel_entries(launches, hash_launches, lookup_launches, errs,
+                   timed) -> list:
+    """The entries of the ``kernels`` line: every kernel with its source,
+    the code it replaces, its launches on its own path, its error against
+    the twin and its measured and bound times."""
+    sources = {"sliding_hash": (K1_SOURCE, K1_REPLACES, launches),
+               "packed_lookup": (K2_SOURCE, K2_REPLACES, launches),
+               "sliding_pack_p16": (K3_SOURCE, K3_REPLACES, hash_launches),
+               "sliding_pack_p8": (K3_SOURCE, K3_REPLACES, hash_launches),
+               "stream_copy": (K45_SOURCE, K4_REPLACES, hash_launches),
+               "stream_sum": (K45_SOURCE, K5_REPLACES, hash_launches),
+               "gather_loop": (K678_SOURCE, K6_REPLACES, lookup_launches),
+               "rmw_loop": (K678_SOURCE, K7_REPLACES, lookup_launches),
+               "bcast_cmp": (K678_SOURCE, K8_REPLACES, lookup_launches)}
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": path_launches[name],
+                **errs[name], **timed[name]}
+               for name, (source, replaces, path_launches)
+               in sources.items()]
+    for entry in kernels:
+        missing = [key for key in KERNEL_KEYS if key not in entry]
+        if missing:
+            raise AssertionError(f"kernel {entry['name']} lacks {missing}")
+    return kernels
 
 
 def parse_args(argv):
@@ -890,8 +1074,9 @@ def parse_args(argv):
     p.add_argument("--genome-bases", type=int, default=150_000_000)
     p.add_argument("--reads", type=int, default=1_000_000)
     p.add_argument("--profile", metavar="PATH",
-                   help="profile a second map_kmers and has_kmers call; "
-                        "write the operator tables to PATH")
+                   help="profile the CSR map_kmers and has_kmers calls as "
+                        "well as the packed ones; write the operator "
+                        "tables to PATH")
     return p.parse_args(argv)
 
 
@@ -928,9 +1113,11 @@ def main(argv=None) -> int:
     main_k1_err, main_k2_err = check_at_main_shapes(state, K)
     k1_err = max(k1_err, main_k1_err)
     k2_err = max(main_k2_err, check_k2(dev, state, 1 << 22, gen))
-    (k1_ms, k1_plain, t1_err), (k2_ms, k2_plain, t2_err) = time_kernels(
-        dev, card, state, K)
-    k1_err, k2_err = max(k1_err, t1_err), max(k2_err, t2_err)
+    timed = time_kernels(dev, card, state, K)
+    errs = {}
+    for name, err in (("sliding_hash", k1_err), ("packed_lookup", k2_err)):
+        errs[name] = {"max_abs_err": max(err,
+                                         timed[name].pop("max_abs_err"))}
 
     check_k3(dev, 1 << 26, gen)
     _kernels.reset_launch_counts()
@@ -939,8 +1126,8 @@ def main(argv=None) -> int:
     hash_launches = dict(_kernels.launch_counts)
     print(f"hashing path launches {hash_launches} [{card}]", flush=True)
     require_launches(hash_launches, HASHING_KERNELS, "hashing path")
-    errs = check_hashing(state, hashed)
-    timed = time_hashing(dev, card, state, hashed)
+    errs.update(check_hashing(state, hashed))
+    timed.update(time_hashing(dev, card, state, hashed))
     del hashed
 
     probes = probe_inputs(dev, gen, primitives.PROBE_QUERIES,
@@ -956,31 +1143,20 @@ def main(argv=None) -> int:
     require_launches(lookup_launches, LOOKUP_KERNELS, "lookup path")
     errs.update(check_lookup(dev, state, lk, GET_SAMPLE, gen))
     timed.update(time_lookup(dev, card, state, lk))
-    if args.profile:
-        profile_lookup(dev, card, state, args.profile, lk["csr"])
+    with tempfile.TemporaryDirectory() as workdir:
+        syncs = profile_lookup(
+            dev, card, state, args.profile or Path(workdir) / "profile.txt",
+            lk["csr"] if args.profile else None)
+    n_seg = len(state["read_kmers"].segments)
+    for name in ("map_kmers", "has_kmers"):
+        if syncs[name] > 2 * n_seg:
+            raise AssertionError(f"a packed {name} call made the host wait "
+                                 f"{syncs[name]} times over {n_seg} read "
+                                 "segments")
     del lk
 
-    kernels = [
-        {"name": "sliding_hash", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": launches["sliding_hash"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "packed_decode", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["packed_decode"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
-    ]
-    sources = {"sliding_pack_p16": (K3_SOURCE, K3_REPLACES, hash_launches),
-               "sliding_pack_p8": (K3_SOURCE, K3_REPLACES, hash_launches),
-               "stream_copy": (K45_SOURCE, K4_REPLACES, hash_launches),
-               "stream_sum": (K45_SOURCE, K5_REPLACES, hash_launches),
-               "gather_loop": (K678_SOURCE, K6_REPLACES, lookup_launches),
-               "rmw_loop": (K678_SOURCE, K7_REPLACES, lookup_launches),
-               "bcast_cmp": (K678_SOURCE, K8_REPLACES, lookup_launches)}
-    for name, (source, replaces, path_launches) in sources.items():
-        ms, plain_ms = timed[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": path_launches[name], **errs[name],
-                        "ms": ms, "plain_ms": plain_ms})
+    kernels = kernel_entries(launches, hash_launches, lookup_launches, errs,
+                             timed)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,7 @@ SOURCES = ("sliding_hash.cu", "packed_lookup.cu", "sliding_pack.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-launch_counts = {"sliding_hash": 0, "packed_decode": 0,
+launch_counts = {"sliding_hash": 0, "packed_lookup": 0,
                  "sliding_pack_p16": 0, "sliding_pack_p8": 0,
                  "stream_copy": 0, "stream_sum": 0, "gather_loop": 0,
                  "rmw_loop": 0, "bcast_cmp": 0}
@@ -100,12 +100,12 @@ def build() -> tuple[Path, float]:
 @functools.cache
 def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    ptr, i64, u64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong
     lib.gki_sliding_hash.argtypes = [ptr, ptr, i64, ctypes.c_int, ptr]
     lib.gki_sliding_hash.restype = ctypes.c_int
-    lib.gki_packed_decode.argtypes = [ptr, ptr, i64, i64, i64, ptr, i64,
-                                      ptr, ptr, ptr]
-    lib.gki_packed_decode.restype = ctypes.c_int
+    lib.gki_packed_lookup.argtypes = [ptr, ptr, i64, i64, u64, ptr, ptr,
+                                      i64, ptr, i64, ptr, ctypes.c_int, ptr]
+    lib.gki_packed_lookup.restype = ctypes.c_int
     lib.gki_sliding_pack.argtypes = [ptr, ptr, i64, ctypes.c_int,
                                      ctypes.c_int, ptr]
     lib.gki_sliding_pack.restype = ctypes.c_int

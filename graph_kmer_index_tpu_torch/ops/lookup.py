@@ -14,12 +14,20 @@ An empty lane is all ones (-1 as int32; JAX's ``_EMPTY``), so an empty
 size lane reads as size 0 and an empty key never matches a hash < 2^62.
 Buckets of size <= 2 resolve from the record alone; deeper ones (and
 "dup2" buckets, which hold one k-mer twice) keep their first sorted row in
-lane 6 and resolve by scanning the bucket-sorted rows; buckets deeper than
-``SCAN_CAP`` ("ultra", e.g. poly-A) resolve once per unique query k-mer.
+lane 6 and resolve by scanning the bucket-sorted rows; for buckets deeper
+than ``SCAN_CAP`` ("ultra", e.g. poly-A) the plain twin resolves each
+unique query k-mer once and weights it by its multiplicity.
 
-Kernel K2 (csrc/packed_lookup.cu) does the per-query decode; the deep
-scan and the ultra resolution are plain torch on the few queries that
-need them.
+Kernel K2 (csrc/packed_lookup.cu) answers a whole query batch in one
+launch (:func:`packed_lookup`): the lanes answer the queries they can, and
+every other query (deep, dup2 or ultra bucket) is scanned in the same
+block, once per distinct k-mer of the block's tile and weighted by its
+multiplicity there. Nothing comes back to the host between the classes,
+and ``map_kmers``/``has_kmers`` run no loop by depth on a CUDA tensor. Its
+plain twin, :func:`packed_lookup_plain`, is the same lookup as three
+plain-torch steps (:func:`packed_decode_plain`, the deep scan by depth,
+the ultra resolution per unique k-mer) and serves CPU tensors and the
+tests.
 
 The CSR path reads the rows as the index stores them, sorted by bucket
 under the REFERENCE modulo: a query's rows are [start, start + size) of
@@ -56,7 +64,8 @@ _U32 = 0xFFFFFFFF
 # chunks of at most this many rows
 _ULTRA_ROWS_PER_CHUNK = 1 << 24
 
-# query classes written by K2 (0: final, answered by the record lanes)
+# query classes of packed_decode_plain (0: final, answered by the record
+# lanes)
 CLS_DEEP, CLS_ULTRA = 1, 2
 
 
@@ -175,12 +184,13 @@ def build_packed(kmers: torch.Tensor, nodes: torch.Tensor,
                         deep_frac)
 
 
-# -- kernel K2 and its plain twin ---------------------------------------------
+# -- the steps of K2's plain twin ---------------------------------------------
 
 def packed_decode_plain(records, queries, n_valid, modulo2, n_nodes=None):
-    """Plain twin of K2. With ``n_nodes``: (int64 lane counts of length
-    n_nodes, uint8 class per query); without: (bool lane hit per query,
-    uint8 class per query). Classes: 0 final, 1 deep, 2 ultra."""
+    """The lanes' step of K2's plain twin, and its classifier. With
+    ``n_nodes``: (int64 lane counts of length n_nodes, uint8 class per
+    query); without: (bool lane hit per query, uint8 class per query).
+    Classes: 0 final, 1 deep, 2 ultra."""
     n = queries.shape[0]
     valid = torch.arange(n, device=queries.device) < n_valid
     g = records[queries % modulo2]
@@ -204,45 +214,6 @@ def packed_decode_plain(records, queries, n_valid, modulo2, n_nodes=None):
     return counts, (ultra.to(torch.uint8) * CLS_ULTRA
                     + deep.to(torch.uint8) * CLS_DEEP)
 
-
-def packed_decode(records, queries, n_valid, modulo2, n_nodes=None):
-    """Kernel K2 on CUDA tensors, the plain twin on CPU tensors; same
-    contract as :func:`packed_decode_plain`."""
-    if queries.device.type == "cpu":
-        return packed_decode_plain(records, queries, n_valid, modulo2,
-                                   n_nodes)
-    _kernels.check_cuda_tensor(records, "records", torch.int32, 2)
-    _kernels.check_cuda_tensor(queries, "queries", torch.int64, 1)
-    if records.device != queries.device:
-        raise ValueError("records and queries must share a device")
-    if records.shape[1] != 8 or records.shape[0] < modulo2:
-        raise ValueError(f"records must be (>= {modulo2}, 8), got "
-                         f"{tuple(records.shape)}")
-    if records.data_ptr() % 16:
-        raise ValueError("records must be 16-byte aligned")
-    dev = queries.device
-    n = queries.shape[0]
-    cls = torch.empty(n, dtype=torch.uint8, device=dev)
-    if n_nodes is None:
-        out = torch.empty(n, dtype=torch.bool, device=dev)
-        counts_ptr, hit_ptr, n_nodes_arg = None, out.data_ptr(), 0
-    else:
-        out = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
-        counts_ptr, hit_ptr, n_nodes_arg = out.data_ptr(), None, n_nodes
-    if n == 0:
-        return out, cls
-    lib = _kernels.library()
-    with torch.cuda.device(dev):
-        err = lib.gki_packed_decode(
-            records.data_ptr(), queries.data_ptr(), n, min(n_valid, n),
-            modulo2, counts_ptr, n_nodes_arg, hit_ptr, cls.data_ptr(),
-            _kernels.stream_handle(dev))
-    _kernels.check_launch("packed_decode", err)
-    _kernels.launch_counts["packed_decode"] += 1
-    return out, cls
-
-
-# -- plain-torch follow-ups ---------------------------------------------------
 
 def _bucket_meta(tables: PackedTables, q: torch.Tensor):
     """(start row, size) of each query's bucket, from its record."""
@@ -328,6 +299,91 @@ def fixup_membership(hit, idx, q, present_sorted):
     pos = pos.clamp(max=present_sorted.shape[0] - 1)
     hit[idx] = present_sorted[pos] == q
     return hit
+
+
+def finish_classes(tables: PackedTables, queries, out, cls, n_nodes=None):
+    """The steps after the lanes' of K2's plain twin: ``out`` (lane counts
+    or lane hits) completed for the queries that ``cls`` marks deep
+    (buckets scanned by depth) or ultra (resolved once per unique
+    k-mer)."""
+    deep = torch.nonzero(cls == CLS_DEEP).flatten()
+    ultra = torch.nonzero(cls == CLS_ULTRA).flatten()
+    if deep.numel():
+        ids, rows = _scan_deep(tables, queries[deep])
+        if n_nodes is None:
+            out[deep[ids]] = True
+        else:
+            _add_node_hits(out, tables.ns[rows])
+    if ultra.numel():
+        q = queries[ultra]
+        uniq, mult = torch.unique(q, return_counts=True)
+        ids, rows = _ultra_matches(tables, uniq)
+        if n_nodes is None:
+            sent = torch.full((1,), PRESENT_SENT, dtype=torch.int64,
+                              device=q.device)
+            out = fixup_membership(
+                out, ultra, q, torch.cat([torch.unique(uniq[ids]), sent]))
+        else:
+            _add_node_hits(out, tables.ns[rows], mult[ids])
+    return out
+
+
+def packed_lookup_plain(tables: PackedTables, queries, n_valid,
+                        n_nodes=None):
+    """Plain twin of K2: the packed lookup of ``queries[:n_valid]`` (the
+    rest is padding). With ``n_nodes``: int64 hit counts per node (nodes
+    >= n_nodes dropped); without: bool membership per query. The lanes
+    answer what they can (:func:`packed_decode_plain`), then
+    :func:`finish_classes` the rest."""
+    out, cls = packed_decode_plain(tables.records, queries, n_valid,
+                                   tables.modulo2, n_nodes)
+    return finish_classes(tables, queries, out, cls, n_nodes)
+
+
+def packed_lookup(tables: PackedTables, queries, n_valid, n_nodes=None):
+    """Kernel K2 on CUDA tensors, the plain twin on CPU tensors; same
+    contract as :func:`packed_lookup_plain`. Queries are hashes: int64
+    values >= 0."""
+    if queries.device.type == "cpu":
+        return packed_lookup_plain(tables, queries, n_valid, n_nodes)
+    records, modulo2 = tables.records, tables.modulo2
+    _kernels.check_cuda_tensor(records, "records", torch.int32, 2)
+    _kernels.check_cuda_tensor(queries, "queries", torch.int64, 1)
+    _kernels.check_cuda_tensor(tables.ks, "ks", torch.int64, 1)
+    _kernels.check_cuda_tensor(tables.ns, "ns", torch.int64, 1)
+    dev = queries.device
+    if not records.device == tables.ks.device == tables.ns.device == dev:
+        raise ValueError("the tables and the queries must share a device")
+    if records.shape[1] != 8 or records.shape[0] < modulo2:
+        raise ValueError(f"records must be (>= {modulo2}, 8), got "
+                         f"{tuple(records.shape)}")
+    if records.data_ptr() % 16:
+        raise ValueError("records must be 16-byte aligned")
+    if tables.ns.shape != tables.ks.shape:
+        raise ValueError("ks and ns must have one length")
+    if n_nodes is not None and n_nodes < 0:
+        raise ValueError(f"n_nodes must be >= 0, got {n_nodes}")
+    n = queries.shape[0]
+    if n_nodes is None:
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+    else:
+        out = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    counts_mode = n_nodes is not None
+    lib = _kernels.library()
+    with torch.cuda.device(dev):
+        err = lib.gki_packed_lookup(
+            records.data_ptr(), queries.data_ptr(), n,
+            max(0, min(n_valid, n)), modulo2, tables.ks.data_ptr(),
+            tables.ns.data_ptr(), tables.ks.shape[0],
+            out.data_ptr() if counts_mode else None,
+            n_nodes if counts_mode else 0,
+            None if counts_mode else out.data_ptr(), int(counts_mode),
+            _kernels.stream_handle(dev))
+    _kernels.check_launch("packed_lookup", err)
+    _kernels.launch_counts["packed_lookup"] += 1
+    return out
 
 
 def packed_byte_budget(device: torch.device) -> int:
@@ -548,18 +604,7 @@ class DeviceKmerIndex:
             return _node_counts(queries, self.table_kmers, self.table_nodes,
                                 self.starts_tbl, self.sizes_tbl, self.modulo,
                                 n_nodes)
-        counts, cls = packed_decode(t.records, queries, queries.shape[0],
-                                    t.modulo2, n_nodes)
-        deep = torch.nonzero(cls == CLS_DEEP).flatten()
-        if deep.numel():
-            _ids, rows = _scan_deep(t, queries[deep])
-            _add_node_hits(counts, t.ns[rows])
-        ultra = torch.nonzero(cls == CLS_ULTRA).flatten()
-        if ultra.numel():
-            uniq, mult = torch.unique(queries[ultra], return_counts=True)
-            ids, rows = _ultra_matches(t, uniq)
-            _add_node_hits(counts, t.ns[rows], mult[ids])
-        return counts
+        return packed_lookup(t, queries, queries.shape[0], n_nodes)
 
     def has_kmers(self, queries: torch.Tensor) -> torch.Tensor:
         """bool membership per query of an int64 query tensor."""
@@ -567,22 +612,7 @@ class DeviceKmerIndex:
         if t is None:
             return _has_kmers(queries, self.table_kmers, self.starts_tbl,
                               self.sizes_tbl, self.modulo)
-        hit, cls = packed_decode(t.records, queries, queries.shape[0],
-                                 t.modulo2)
-        deep = torch.nonzero(cls == CLS_DEEP).flatten()
-        if deep.numel():
-            ids, _rows = _scan_deep(t, queries[deep])
-            hit[deep[ids]] = True
-        ultra = torch.nonzero(cls == CLS_ULTRA).flatten()
-        if ultra.numel():
-            q = queries[ultra]
-            uniq = torch.unique(q)
-            ids, _rows = _ultra_matches(t, uniq)
-            present = torch.unique(uniq[ids])
-            sent = torch.full((1,), PRESENT_SENT, dtype=torch.int64,
-                              device=q.device)
-            hit = fixup_membership(hit, ultra, q, torch.cat([present, sent]))
-        return hit
+        return packed_lookup(t, queries, queries.shape[0])
 
     def map_read_kmers(self, read_kmers, n_nodes: int) -> torch.Tensor:
         """Counts for a DeviceReadKmers batch, segment by segment."""

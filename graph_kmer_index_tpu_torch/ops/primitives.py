@@ -33,6 +33,9 @@ from .lookup import _i32_bits
 STREAM_ROWS = 1 << 20
 STREAM_COLS = 128
 BLOCK_ROWS = 1 << 12
+# the bytes K4 moves at a time (kTileBytes in csrc/stream.cu): a
+# table of any other length ends in a shorter tile
+COPY_TILE_BYTES = 1 << 15
 
 # the probes' sizes in bench_primitives.py: 2^22 indices in blocks of 8192
 # into a (4096, 128) int32 table (K6, K7); 2^21 queries in tiles of
@@ -82,8 +85,9 @@ def stream_copy_plain(table: torch.Tensor) -> torch.Tensor:
 
 
 def stream_copy(table: torch.Tensor) -> torch.Tensor:
-    """A copy of a contiguous 2-D float32 table: kernel K4 on CUDA, the
-    plain twin on CPU."""
+    """A copy of a contiguous 2-D float32 table of whole 16-byte rows, of
+    any length (shorter than one tile of COPY_TILE_BYTES, or ending in a
+    ragged one): kernel K4 on CUDA, the plain twin on CPU."""
     if table.device.type == "cpu":
         return stream_copy_plain(table)
     _kernels.check_cuda_tensor(table, "table", torch.float32, 2)

@@ -19,9 +19,10 @@ sys.modules["graph_kmer_index_tpu"] = None
 import graph_kmer_index_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-smoke = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(smoke)
+for script in ("chip_smoke", "chip_compare"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok")
 """
@@ -74,7 +75,7 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")
      if "build" not in p.relative_to(PACKAGE).parts]  # kernel build output
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "chip_compare.py"]))
 def test_no_jax_import_in_source(path):
     assert not _FORBIDDEN.search((ROOT / path).read_text()), path
 

@@ -43,6 +43,15 @@ def _table(kind):
         kmers[300:320] = 12345
         nodes = rng.integers(1, 300, n).astype(np.uint32)
         return kmers, nodes, 211
+    if kind == "mixed":  # all three query classes in one table
+        n = 3000
+        kmers = rng.integers(0, 4 ** 31, n, dtype=np.uint64)
+        kmers[:300] = 0                                   # ultra (poly-A)
+        kmers[300:1300] = rng.integers(1, 400, 1000)      # deep buckets
+        kmers[1300:1400] = np.repeat(                     # one k-mer twice
+            rng.integers(4 ** 20, 4 ** 25, 50, dtype=np.uint64), 2)
+        nodes = rng.integers(1, 300, n).astype(np.uint32)
+        return kmers, nodes, 211
     raise ValueError(kind)
 
 
@@ -172,3 +181,70 @@ def test_over_budget_raises(monkeypatch):
     assert np.array_equal(port.has_kmers(queries),
                           np.asarray(index.has_kmers(queries)))
     assert port.device_index.packed() is None
+
+
+def _packed_tables(index):
+    port = KmerIndex.from_jax_state(index._kmers, index._nodes,
+                                    index._modulo, device="cpu")
+    return port.device_index.packed()
+
+
+@pytest.mark.parametrize("fn", [torch_lookup.packed_lookup,
+                                torch_lookup.packed_lookup_plain])
+@pytest.mark.parametrize("kind,n_nodes,pad", [
+    ("mixed", None, 0), ("mixed", None, 77), ("mixed", 40, 77),
+    ("ultra", None, 5), ("deep", 100, 64), ("dup2", None, 3),
+    ("random", None, 1)])
+def test_packed_lookup_twin_matches_jax(fn, kind, n_nodes, pad):
+    """K2's plain twin (which the wrapper takes for a CPU tensor) against
+    the JAX package's map_kmers and has_kmers, exact: queries of every
+    class, padding past n_valid (k-mer 0, a stored poly-A hash), and
+    nodes >= n_nodes dropped."""
+    index = _jax_index(kind)
+    kmers = np.asarray(index._kmers)
+    all_nodes = int(np.max(index._nodes)) + 1
+    n_nodes = n_nodes or all_nodes
+    t = _packed_tables(index)
+    queries = _queries("ultra" if kind == "mixed" else kind, kmers,
+                       t.modulo2, np.random.default_rng(11))
+    n_valid = len(queries)
+    q = torch.from_numpy(np.concatenate(
+        [queries, np.zeros(pad, np.uint64)]).view(np.int64))
+    if kind == "mixed":
+        cls = torch_lookup.packed_decode_plain(t.records, q, n_valid,
+                                               t.modulo2, n_nodes)[1]
+        assert torch.bincount(cls.to(torch.int64), minlength=3).min() > 0
+        assert not cls[n_valid:].any()
+    counts = fn(t, q, n_valid, n_nodes)
+    assert counts.dtype == torch.int64 and counts.shape == (n_nodes,)
+    # dropped nodes: the counts of all nodes, cut (the JAX package's own
+    # ultra resolution indexes past a shorter count array)
+    assert np.array_equal(counts.numpy(), np.asarray(
+        index.map_kmers(queries, all_nodes), dtype=np.int64)[:n_nodes])
+    hit = fn(t, q, n_valid)
+    assert hit.dtype == torch.bool and hit.shape == q.shape
+    assert np.array_equal(hit[:n_valid].numpy(),
+                          np.asarray(index.has_kmers(queries)))
+    assert not hit[n_valid:].any()
+
+
+@pytest.mark.parametrize("fn", [torch_lookup.packed_lookup,
+                                torch_lookup.packed_lookup_plain])
+def test_packed_lookup_of_an_empty_batch(fn):
+    t = _packed_tables(_jax_index("mixed"))
+    q = torch.zeros(0, dtype=torch.int64)
+    assert torch.equal(fn(t, q, 0, 7), torch.zeros(7, dtype=torch.int64))
+    assert fn(t, q, 0).shape == (0,) and fn(t, q, 0).dtype == torch.bool
+    # a batch that is all padding counts nothing either
+    pad = torch.zeros(9, dtype=torch.int64)
+    assert not fn(t, pad, 0, 7).any() and not fn(t, pad, 0).any()
+
+
+def test_packed_lookup_refuses_what_the_kernel_does_not_take():
+    t = _packed_tables(_jax_index("random"))
+    q = torch.zeros(4, dtype=torch.int64)
+    # a tensor on neither the CPU nor a CUDA device gets no twin
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_lookup.packed_lookup(t, q.to("meta"), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_lookup.packed_lookup(t, q.to("meta"), 4, 10)

@@ -5,6 +5,9 @@ benchmarks/bench_primitives.py, so the kernels' stated semantics are the
 reference here: a copy is exact, a block sum is held against a float64
 sum at relative 1e-4 (the bound of the JAX benchmark's own self-check).
 Sizes are the benchmark's small ones: 2^10 x 128 rows, blocks of 128."""
+import re
+from pathlib import Path
+
 import jax  # noqa: F401  (same process set-up as the other port tests)
 import numpy as np
 import pytest
@@ -31,6 +34,32 @@ def test_stream_copy_is_exact(fn):
     assert np.array_equal(out.numpy(), table)
     # a copy, not a view
     assert out.data_ptr() != torch.from_numpy(table).data_ptr()
+
+
+_TILE_WORDS = primitives.COPY_TILE_BYTES // 16
+
+
+@pytest.mark.parametrize("shape", [
+    (0, 4), (1, 4), (5, 4), (_TILE_WORDS - 1, 4), (_TILE_WORDS, 4),
+    (_TILE_WORDS + 1, 4), (3 * _TILE_WORDS + 37, 4), (7, 128), (1000, 12)])
+def test_stream_copy_of_any_length(shape):
+    """Tables shorter than one tile of K4, of whole tiles, and ending in a
+    ragged tile: the wrapper takes each and the copy is exact."""
+    table = np.random.default_rng(shape[0]).random(shape).astype(np.float32)
+    assert (table.nbytes % primitives.COPY_TILE_BYTES == 0) == (
+        shape[0] in (0, _TILE_WORDS))
+    out = primitives.stream_copy(torch.from_numpy(table))
+    assert out.shape == shape and out.dtype == torch.float32
+    assert np.array_equal(out.numpy(), table)
+
+
+def test_stream_copy_tile_is_the_sources():
+    """COPY_TILE_BYTES is the tile that csrc/stream.cu compiles in."""
+    source = (Path(primitives.__file__).resolve().parents[1] / "csrc"
+              / "stream.cu").read_text()
+    tile = re.search(r"constexpr int kTileBytes = (\d+);", source)
+    assert int(tile.group(1)) == primitives.COPY_TILE_BYTES
+    assert primitives.COPY_TILE_BYTES % 16 == 0
 
 
 @pytest.mark.parametrize("fn", (primitives.stream_sum,

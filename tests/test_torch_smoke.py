@@ -37,10 +37,15 @@ def test_smoke_phases_on_cpu(tmp_path, capsys):
     cs.check_results(dev, state, cs.K, 50, np.random.default_rng(1))
     assert cs.check_at_main_shapes(state, cs.K) == (0, 0)
     assert cs.check_k2(dev, state, 4096, gen) == 0
-    cs.profile_lookup(dev, "CPU", state, tmp_path / "profile.txt")
+    syncs = cs.profile_lookup(dev, "CPU", state, tmp_path / "profile.txt")
+    # the CPU takes the plain twin, whose steps do wait for their sizes
+    assert sorted(syncs) == ["has_kmers", "map_kmers"]
+    assert all(isinstance(n, int) and n > 0 for n in syncs.values())
     tables = (tmp_path / "profile.txt").read_text()
     assert "== map_kmers" in tables and "== has_kmers" in tables
     out = capsys.readouterr().out
+    assert "host syncs" in out and "aten::nonzero" in out
+    assert "4096 queries (3096 valid)" in out
     assert "counts == join" in out and "membership == join" in out
     assert "on the main path's 120000 bases" in out
     # the planted poly-A run is an ultra-deep bucket
@@ -57,11 +62,19 @@ def test_smoke_hashing_phase_on_cpu(capsys):
     # bench_primitives.py's small sizes: 2^10 x 128 rows, blocks of 128
     hashed = cs.hashing_path(dev, "CPU", genome, 1 << 10, 1 << 7, gen)
     assert hashed["sums"].shape == (8,)
+    # 80 bytes (below one tile) and all but one 16-byte word of the table
+    assert [n for n, _ in hashed["ragged"]] == [5, (1 << 15) - 1]
+    assert ((1 << 15) - 1) * 16 % cs.primitives.COPY_TILE_BYTES
     errs = cs.check_hashing({"genome": genome}, hashed)
     for name in ("sliding_pack_p16", "sliding_pack_p8", "stream_copy"):
         assert errs[name] == {"max_abs_err": 0}
     assert errs["stream_sum"]["max_rel_err"] <= cs.SUM_RTOL
+    # a ragged copy that lost its tail is caught
+    hashed["ragged"][1][1][-1, -1] += 1.0
+    with pytest.raises(AssertionError, match="K4 on 32767 words"):
+        cs.check_hashing({"genome": genome}, hashed)
     out = capsys.readouterr().out
+    assert "and on [80, 524272] bytes (tile 32768)" in out
     assert "on the main path's 5000 bases" in out
     assert "the P16 and the P8 route's k=31 rows == K1's" in out
 
@@ -89,11 +102,24 @@ def test_smoke_lookup_phase_on_cpu(tmp_path, capsys, monkeypatch):
         return 1.0, 2.0, (1.0, 1.0, 2.0, 2.0), compare(kernel(), plain(),
                                                         what)
 
-    # the CUDA-event timer needs a card: compare the timed calls only
+    # the CUDA-event timers need a card: compare the timed calls only
     monkeypatch.setattr(cs, "time_pair", host_pair)
+    monkeypatch.setattr(cs, "time_one", lambda dev, fn, reps: fn() is None
+                        or 3.0)
     timed = cs.time_lookup(dev, "CPU", state, lk)
     assert sorted(timed) == sorted(cs.LOOKUP_KERNELS)
+    for name, fields in timed.items():
+        assert sorted(fields) == ["bound_by", "bound_ms", "library_ms", "ms",
+                                  "plain_ms"]
+        assert fields["bound_ms"] > 0
+    assert timed["rmw_loop"]["library_ms"] == 3.0
+    assert timed["gather_loop"]["library_ms"] is None
+    assert timed["bcast_cmp"]["library_ms"] is None
+    # 2048 queries x 32 entries x 4 operations against 32 KB: operations
+    assert timed["bcast_cmp"]["bound_by"] == "operations"
+    assert timed["rmw_loop"]["bound_by"] == "bytes"
     out = capsys.readouterr().out
+    assert "one PyTorch call (bincount) 3.000000 ms" in out
     assert "CSR counts and membership == the packed path's" in out
     assert "== the join on 500 sampled queries" in out
     assert "timing get_batched on 4096 queries" in out
@@ -132,6 +158,41 @@ def test_smoke_requires_each_paths_kernels():
     with pytest.raises(AssertionError, match="stream_sum was not launched "
                        "by the hashing path"):
         cs.require_launches(launches, cs.HASHING_KERNELS, "hashing path")
+
+
+def test_smoke_bounds_and_kernel_entries():
+    cs = _smoke()
+    assert cs.bound(nbytes=3.35e9) == {"bound_ms": 1.0, "bound_by": "bytes"}
+    assert cs.bound(nbytes=3.35e6, ops=16.75e9) == {
+        "bound_ms": 1.0, "bound_by": "operations"}
+    launches = dict.fromkeys(_kernels.launch_counts, 2)
+    errs = {name: {"max_abs_err": 0} for name in launches}
+    timed = {name: {"ms": 1.0, "plain_ms": 2.0, "library_ms": None,
+                    **cs.bound(nbytes=1e6)} for name in launches}
+    entries = cs.kernel_entries(launches, launches, launches, errs, timed)
+    assert [e["name"] for e in entries] == list(_kernels.launch_counts)
+    for entry in entries:
+        assert set(cs.KERNEL_KEYS) <= set(entry)
+        assert (ROOT / entry["source"]).exists()
+    del timed["stream_copy"]["bound_ms"]
+    with pytest.raises(AssertionError, match="stream_copy lacks"):
+        cs.kernel_entries(launches, launches, launches, errs, timed)
+
+
+def test_smoke_k2_bytes_counts_the_scanned_rows(tmp_path):
+    cs = _smoke()
+    args = cs.parse_args(["--genome-bases", "60000", "--reads", "400"])
+    state = cs.main_path(torch.device("cpu"), "CPU", args, tmp_path)
+    t, n_nodes = state["tables"], state["n_nodes"]
+    seg = state["read_kmers"].segments[0]
+    cls = cs.query_classes(t, seg).tolist()
+    assert sum(cls) == seg.shape[0] and min(cls) > 0
+    moved = cs.k2_bytes(t, seg, n_nodes)
+    # more than the records and the counts: the poly-A bucket is scanned
+    assert moved > seg.shape[0] * 40 + n_nodes * 8 + 8 * cs.lookup.SCAN_CAP
+    final_only = seg[:8]
+    if cs.query_classes(t, final_only)[0] == 8:
+        assert cs.k2_bytes(t, final_only, n_nodes) == 8 * 40 + n_nodes * 8
 
 
 def test_smoke_sum_tolerance():
