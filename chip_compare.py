@@ -1,33 +1,39 @@
 #!/usr/bin/env python3
-"""Kernels K4 (stream_copy) and K2 (packed lookup) of this checkout timed
-on one GPU against those of an earlier commit, in one process and in
-turns.
+"""Kernels K6 (gather_loop) and K7 (rmw_loop) of this checkout timed on one
+GPU against those of an earlier commit, in one process and in turns.
 
-    git archive <commit> graph_kmer_index_tpu_torch/csrc | tar -x -C DIR
+    git archive 8d196f1 graph_kmer_index_tpu_torch/csrc | tar -x -C DIR
     python3 chip_compare.py --parent-csrc DIR/graph_kmer_index_tpu_torch/csrc
 
 (DIR: a git-ignored directory such as ``.parent_checkout``.) The earlier
-commit is one whose K2 is the decode head ``gki_packed_decode``: the head
-writes a class byte per query, and plain-torch follow-ups (the deep scan
-by depth, the ultra resolution per unique k-mer) finish what it marks.
-That whole earlier packed path is rebuilt here from the head and
-``lookup.finish_classes``.
+commit is one whose ``probes.cu`` has the first interface of the probes
+(8d196f1 and before): ``gki_rmw_loop`` adds into a table that the caller
+has zeroed. It is called here as that commit's wrappers called it (the
+checks, ``torch.empty`` or ``torch.zeros``, a device context, the stream,
+the ctypes call). ``--design-csrc DIR`` (any number) adds a ``probes.cu``
+with this checkout's interface: to try a design, copy ``csrc``, edit the
+copy and name it here; a design that loses is deleted, not kept behind a
+macro.
 
-Every function is first held against the kernel's plain twin on the timed
-inputs (bit-exact), then timed with CUDA events: the whole list forwards,
-then backwards, the two means averaged, so that a drift of the card's
-clocks favours neither side; the turns are made twice.
+Sizes are bench_primitives.py's: 2^22 int32 indices in blocks of 8192
+into a (4096, 128) int32 table. Every side is first held against the
+kernel's plain twin, bit for bit, on every timed buffer. Then each is
+timed by the device's clock (chip_smoke.device_time: torch.profiler's
+device time of everything a call runs on the card, so K7's time covers
+the zeroing of its table, whoever does it): the whole list forwards, then
+backwards, the two means averaged, so that a drift of the card's clocks
+favours neither side; the turns are made twice. Three index sets:
 
-K4, on the (2^20, 128) float32 table of the controls (512 MiB): this
-checkout's kernel, the earlier one and ``clone()``.
+- cold: the launches rotate over ``chip_smoke.COLD_BUFFERS`` seeded
+  buffers (128 MiB, several times the L2), so each reads its indices from
+  device memory; the byte bound is compared with this time;
+- warm: one buffer over and over, which the L2 keeps;
+- skewed: the cold buffers with half of the indices one value.
 
-K2, on chip_smoke.py's read-mapping state (150 Mb genome, 1,000,000
-reads): counts and membership on the largest read segment, and
-``map_read_kmers`` / ``has_read_kmers`` over all segments; beside them, as
-a yardstick of the card's random reads, one PyTorch call that gathers 16
-bytes of each query's record.
-
-Prints one line per timing, each with the card's name and power limit.
+Beside them the host's cost of one wrapper call (host clock, no
+synchronise inside) and what CUDA events around the Python calls read,
+the method of the earlier records. Prints one line per timing, each with
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -43,173 +49,178 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import chip_smoke  # noqa: E402
-from graph_kmer_index_tpu_torch.ops import (  # noqa: E402
-    _kernels, lookup, primitives)
+from graph_kmer_index_tpu_torch.ops import _kernels, primitives  # noqa: E402
+
+NEW = "this checkout's kernel"
+PARENT = "the earlier commit's kernel"
 
 
-def build_parent(csrc_dir: Path, workdir: str) -> ctypes.CDLL:
-    """The earlier commit's stream.cu and packed_lookup.cu as a library of
-    their own, with the argument types of the two entry points timed."""
-    path = Path(workdir) / "libgki_parent.so"
+def build_probes(csrc_dir: Path, workdir: str, name: str,
+                 first_interface: bool) -> ctypes.CDLL:
+    """``csrc_dir``'s probes.cu as a library of its own, with the argument
+    types of K6 and K7: those of the first interface (the caller zeroes
+    K7's table) or this checkout's."""
+    path = Path(workdir) / f"libgki_{name}.so"
     subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o",
-                    str(path), str(csrc_dir / "stream.cu"),
-                    str(csrc_dir / "packed_lookup.cu")], check=True)
+                    str(path), str(csrc_dir / "probes.cu")], check=True)
     lib = ctypes.CDLL(str(path))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.gki_stream_copy.argtypes = [ptr, ptr, i64, ptr]
-    lib.gki_packed_decode.argtypes = [ptr, ptr, i64, i64, i64, ptr, i64,
-                                      ptr, ptr, ptr]
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if first_interface:
+        lib.gki_gather_loop.argtypes = [ptr, ptr, i64, i32, i64, i32, ptr,
+                                        ptr]
+        lib.gki_rmw_loop.argtypes = [ptr, i64, i32, i64, ptr, ptr]
+    else:
+        lib.gki_gather_loop.argtypes = [ptr, ptr, i64, i32, i64, i32, ptr,
+                                        ptr, ptr]
+        lib.gki_rmw_loop.argtypes = [ptr, i64, i32, i64, ptr, ptr, i32, ptr]
     return lib
 
 
-def time_in_turns(dev, fns: dict, reps: int) -> dict:
-    """{name: (mean ms, forward ms, backward ms)}: the list forwards, then
-    backwards."""
-    forward = {name: chip_smoke.time_one(dev, fn, reps)
-               for name, fn in fns.items()}
-    backward = {name: chip_smoke.time_one(dev, fn, reps)
-                for name, fn in reversed(fns.items())}
-    return {name: ((forward[name] + backward[name]) / 2, forward[name],
-                   backward[name]) for name in fns}
+def first_interface_calls(lib, table, block_q) -> dict:
+    """{probe: call(idx)} through a library with the first interface, as
+    the wrappers of that time made the calls."""
+    n_c, cols = table.shape
 
-
-def report(what, times, card, per_ms=None):
-    for name, (ms, fwd, bwd) in times.items():
-        rate = (f", {per_ms[0] / ms / 1e6:.3f} G {per_ms[1]}/s" if per_ms
-                else "")
-        print(f"timing {what}: {name}: {ms:.6f} ms (forwards {fwd:.6f}, "
-              f"backwards {bwd:.6f}){rate} [{card}]", flush=True)
-
-
-def compare_k4(dev, card, parent, reps=20):
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    table = torch.rand((primitives.STREAM_ROWS, primitives.STREAM_COLS),
-                       generator=gen, device=dev)
-
-    def parent_copy():
-        out = torch.empty_like(table)
-        _kernels.check_launch("the earlier stream_copy",
-                              parent.gki_stream_copy(
-                                  table.data_ptr(), out.data_ptr(),
-                                  table.numel() // 4,
-                                  _kernels.stream_handle(dev)))
+    def gather(idx):
+        _kernels.check_cuda_tensor(idx, "idx", torch.int32, 1)
+        primitives._check_gather_args(idx, table, block_q)
+        out = torch.empty(idx.shape[0] // block_q, dtype=torch.int32,
+                          device=idx.device)
+        with torch.cuda.device(idx.device):
+            err = lib.gki_gather_loop(
+                idx.data_ptr(), table.data_ptr(), idx.shape[0], n_c, cols,
+                block_q, out.data_ptr(), _kernels.stream_handle(idx.device))
+        _kernels.check_launch("the earlier gather_loop", err)
         return out
 
-    fns = {"clone() (one PyTorch call)": table.clone,
-           "this checkout's kernel": lambda: primitives.stream_copy(table),
-           "the earlier commit's kernel": parent_copy}
-    for name, fn in fns.items():
-        chip_smoke.assert_equal(fn(), table, f"K4, {name}")
-    nbytes = table.numel() * 4
-    print(f"K4: every copy == its source (exact) on {nbytes} bytes",
-          flush=True)
-    bound_ms = chip_smoke.bound(2 * nbytes)["bound_ms"]
-    for _ in range(2):
-        report(f"K4 stream_copy, {nbytes} bytes, bound {bound_ms:.6f} ms",
-               time_in_turns(dev, fns, reps), card, (2 * nbytes, "bytes"))
+    def rmw(idx):
+        _kernels.check_cuda_tensor(idx, "idx", torch.int32, 1)
+        primitives._check_rmw_args(idx, n_c, cols)
+        counts = torch.zeros((n_c, cols), dtype=torch.int32,
+                             device=idx.device)
+        with torch.cuda.device(idx.device):
+            err = lib.gki_rmw_loop(idx.data_ptr(), idx.shape[0], n_c, cols,
+                                   counts.data_ptr(),
+                                   _kernels.stream_handle(idx.device))
+        _kernels.check_launch("the earlier rmw_loop", err)
+        return counts
+
+    return {"gather_loop": gather, "rmw_loop": rmw}
 
 
-def parent_packed_path(parent, t, q, n_nodes=None):
-    """The earlier packed path: the decode head, whose class byte sends
-    deep and ultra queries to the plain-torch follow-ups."""
-    n, dev = q.shape[0], q.device
-    cls = torch.empty(n, dtype=torch.uint8, device=dev)
-    counts_mode = n_nodes is not None
-    out = (torch.zeros(n_nodes, dtype=torch.int64, device=dev) if counts_mode
-           else torch.empty(n, dtype=torch.bool, device=dev))
-    _kernels.check_launch("packed_decode", parent.gki_packed_decode(
-        t.records.data_ptr(), q.data_ptr(), n, n, t.modulo2,
-        out.data_ptr() if counts_mode else None, n_nodes or 0,
-        None if counts_mode else out.data_ptr(), cls.data_ptr(),
-        _kernels.stream_handle(dev)))
-    return lookup.finish_classes(t, q, out, cls, n_nodes)
+def design_calls(lib, table, block_q) -> dict:
+    """{probe: call(idx)} through a library with this checkout's
+    interface."""
+    n_c, cols = table.shape
+    return {"gather_loop": lambda idx: primitives.launch_gather_loop(
+                lib, idx, table, block_q),
+            "rmw_loop": lambda idx: primitives.launch_rmw_loop(
+                lib, idx, n_c, cols)}
 
 
-def compare_k2(dev, card, args, parent, reps=5):
-    with tempfile.TemporaryDirectory() as workdir:
-        state = chip_smoke.main_path(dev, card, args, workdir)
-    t, n_nodes = state["tables"], state["n_nodes"]
-    index, read_kmers = state["index"].device_index, state["read_kmers"]
-    segments = read_kmers.segments
-    seg = max(segments, key=lambda s: s.shape[0])
-    n = seg.shape[0]
-    scratch_counts = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
-    scratch_cls = torch.empty(n, dtype=torch.uint8, device=dev)
+def in_turns(measure, sides: dict) -> dict:
+    """{side: (mean, forwards, backwards)} of ``measure(call)``: the sides
+    forwards, then backwards."""
+    forward = {name: measure(call) for name, call in sides.items()}
+    backward = {name: measure(call) for name, call in reversed(sides.items())}
+    return {name: ((forward[name] + backward[name]) / 2, forward[name],
+                   backward[name]) for name in sides}
 
-    def head_alone():
-        # into buffers made once: the kernel's time and no allocation
-        _kernels.check_launch("packed_decode", parent.gki_packed_decode(
-            t.records.data_ptr(), seg.data_ptr(), n, n, t.modulo2,
-            scratch_counts.data_ptr(), n_nodes, None,
-            scratch_cls.data_ptr(), _kernels.stream_handle(dev)))
 
-    # a yardstick for the random record reads, by one PyTorch call: the
-    # first 16 bytes of each query's record gathered from a flat view of
-    # the table (decodes nothing, and writes 16 bytes a query)
-    halves = t.records.view(torch.complex128).view(-1)
-    first_half = (seg % t.modulo2) * 2
-    new, old = "this checkout's kernel", "the earlier decode head"
-    old_path = old + " and its plain-torch follow-ups"
-    counts = {
-        new: lambda: lookup.packed_lookup(t, seg, n, n_nodes),
-        old + " alone": head_alone,
-        old_path: lambda: parent_packed_path(parent, t, seg, n_nodes),
-        "index_select of the first 16 bytes of each query's record (a "
-        "yardstick)": lambda: halves.index_select(0, first_half)}
-    member = {new: lambda: lookup.packed_lookup(t, seg, n),
-              old_path: lambda: parent_packed_path(parent, t, seg)}
-    whole_map = {
-        new: lambda: index.map_read_kmers(read_kmers, n_nodes),
-        old_path: lambda: sum(parent_packed_path(parent, t, s, n_nodes)
-                              for s in segments)}
-    whole_has = {
-        new: lambda: index.has_read_kmers(read_kmers),
-        old_path: lambda: torch.cat([parent_packed_path(parent, t, s)
-                                     for s in segments])}
-    want = (lookup.packed_lookup_plain(t, seg, n, n_nodes),
-            lookup.packed_lookup_plain(t, seg, n))
-    for name in (new, old_path):
-        chip_smoke.assert_equal((counts[name](), member[name]()), want,
-                                f"K2, {name}")
-    chip_smoke.assert_equal(whole_map[new](), whole_map[old_path](),
-                            "map_read_kmers, new against earlier")
-    chip_smoke.assert_equal(whole_has[new](), whole_has[old_path](),
-                            "has_read_kmers, new against earlier")
-    print(f"K2: both packed paths == the plain twin (bit-exact), counts and "
-          f"membership, on {n} queries; classes final/deep/ultra "
-          f"{chip_smoke.query_classes(t, seg).tolist()}", flush=True)
-    bound_ms = chip_smoke.bound(chip_smoke.k2_bytes(t, seg, n_nodes))[
-        "bound_ms"]
-    n_all = len(read_kmers)
-    for _ in range(2):
-        report(f"K2 counts, {n} queries, bound {bound_ms:.6f} ms",
-               time_in_turns(dev, counts, reps), card, (n, "queries"))
-        report(f"K2 membership, {n} queries",
-               time_in_turns(dev, member, reps), card, (n, "queries"))
-        report(f"packed map_read_kmers, {n_all} queries",
-               time_in_turns(dev, whole_map, reps), card, (n_all, "queries"))
-        report(f"packed has_read_kmers, {n_all} queries",
-               time_in_turns(dev, whole_has, reps), card, (n_all, "queries"))
+def report(what, times, card, bound_ms=None):
+    for name, (ms, fwd, bwd) in times.items():
+        share = (f", bound {bound_ms:.6f} ms = {bound_ms / ms:.4f} of it"
+                 if bound_ms else "")
+        print(f"timing {what}: {name}: {ms:.6f} ms (forwards {fwd:.6f}, "
+              f"backwards {bwd:.6f}){share} [{card}]", flush=True)
+
+
+def compare_probe(dev, card, probe, sides, plain, sets, bound_ms, reps):
+    """One probe: ``sides`` {name: call(idx)} against ``plain(idx)`` on
+    every buffer of ``sets`` {name: buffers}, then the timings."""
+    for name, call in sides.items():
+        for kind, buffers in sets.items():
+            for i, idx in enumerate(buffers):
+                chip_smoke.assert_equal(call(idx), plain(idx),
+                                        f"{probe}, {name}, {kind} buffer {i}")
+    n_buffers = sum(len(buffers) for buffers in sets.values())
+    print(f"{probe}: every side == the plain twin (exact) on {n_buffers} "
+          f"buffers of {sets['cold'][0].shape[0]} indices", flush=True)
+    cold, skew = sets["cold"], sets["skewed"]
+    rounds = max(1, reps // len(cold))
+
+    def device_ms(buffers, n_rounds):
+        return lambda call: chip_smoke.device_time(
+            dev, [lambda idx=idx: call(idx) for idx in buffers], n_rounds)[0]
+
+    measures = {
+        f"device clock, cold ({len(cold)} buffers in turn)":
+            (device_ms(cold, rounds), bound_ms),
+        "device clock, warm (one buffer)":
+            (device_ms(cold[:1], rounds * len(cold)), None),
+        f"device clock, skewed and cold ({len(skew)} buffers in turn, half "
+        "of the indices one value)": (device_ms(skew, rounds), None),
+        "host cost of one call": (lambda call: chip_smoke.host_call_time(
+            dev, lambda: call(cold[0]), reps), None),
+        f"CUDA events around {reps} Python calls, warm":
+            (lambda call: chip_smoke.time_one(dev, lambda: call(cold[0]),
+                                              reps), None)}
+    for turn in range(2):
+        for what, (measure, share_of) in measures.items():
+            report(f"{probe}, {what}, turn {turn + 1}",
+                   in_turns(measure, sides), card, share_of)
+    for name, call in sides.items():
+        _, parts = chip_smoke.device_time(
+            dev, [lambda idx=idx: call(idx) for idx in cold], rounds)
+        print(f"{probe}, {name}: device time by kernel, cold, ms a call: "
+              f"{parts} [{card}]", flush=True)
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--parent-csrc", type=Path, metavar="DIR", required=True,
+                   help="the csrc directory of the earlier commit (first "
+                        "interface of the probes: 8d196f1 and before)")
+    p.add_argument("--design-csrc", type=Path, metavar="DIR", action="append",
+                   default=[], help="a csrc directory whose probes.cu has "
+                   "this checkout's interface; may be given more than once")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--reps", type=int, default=200,
+                   help="launches per timing")
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--parent-csrc", type=Path, metavar="DIR", required=True,
-                   help="the csrc directory of the earlier commit")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--genome-bases", type=int, default=150_000_000)
-    p.add_argument("--reads", type=int, default=1_000_000)
-    args = p.parse_args(argv)
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_compare: no CUDA device")
     dev = torch.device("cuda:0")
     card = chip_smoke.card_line()
     print(card, flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    p = chip_smoke.probe_inputs(dev, gen, primitives.PROBE_QUERIES,
+                                primitives.PROBE_BLOCK, 128, 16)
+    table, block_q, cold = p["table"], p["block_q"], p["cold"]
+    sets = {"cold": cold,
+            "skewed": [chip_smoke.skewed(idx, table.shape[0] // 3)
+                       for idx in cold]}
+    bounds = chip_smoke.probe_bounds(cold[0].shape[0], table, block_q)
+    calls = chip_smoke.probe_calls(table, block_q)
     with tempfile.TemporaryDirectory() as workdir:
-        parent = build_parent(args.parent_csrc, workdir)
-        compare_k4(dev, card, parent)
-        compare_k2(dev, card, args, parent)
+        sides = {NEW: {probe: kernel for probe, (kernel, _) in calls.items()},
+                 PARENT: first_interface_calls(
+                     build_probes(args.parent_csrc, workdir, "parent", True),
+                     table, block_q)}
+        for i, csrc in enumerate(args.design_csrc):
+            sides[f"the design in {csrc}"] = design_calls(
+                build_probes(csrc, workdir, f"design{i}", False), table,
+                block_q)
+        for probe in ("gather_loop", "rmw_loop"):
+            compare_probe(dev, card, probe,
+                          {name: side[probe] for name, side in sides.items()},
+                          calls[probe][1], sets, bounds[probe]["bound_ms"],
+                          args.reps)
     print(card, flush=True)
     return 0
 

@@ -35,7 +35,11 @@
    must move at PEAK_BYTES_PER_S, or for K8 its integer operations at
    PEAK_INT32_OPS_PER_S) and, where one PyTorch call computes the same
    function, that call's time (clone() for K4, a row sum for K5,
-   bincount for K7), timed here and used nowhere in the port.
+   bincount for K7), timed here and used nowhere in the port. In the
+   kernels line ``ms`` is a CUDA-event mean, except for K6 and K7, whose
+   launches are shorter than a Python call: theirs is the device's own
+   time on cold indices (step 9), with ``warm_ms``, ``host_call_ms`` and
+   ``events_ms`` beside it.
 8. The hashing path. Holds K3 (P16 and P8) against its twin, bit-exact,
    on 2^26 random bases and on lengths 1, 31 and 1,000,003, for k in
    PACK_KS. Then drives the path on the main path's genome: the k = 31
@@ -62,9 +66,19 @@
    counts and membership equal the packed path's; that both get_batched
    routes are equal, and equal an independent sort-and-search join on a
    sample of 10,000 queries; that the get API keeps exactly the rows of
-   frequency <= max_hits; and each probe against its twin (exact). Times
-   the probes against their twins, the CSR map/has against the packed
-   path and the two get_batched routes against each other.
+   frequency <= max_hits; and each probe against its twin (exact), K6
+   and K7 also on indices outside the table, on an offset slice cut in
+   blocks that are no whole 16-byte vectors, on a skewed set (half of
+   the indices one value), on a narrow table, and K7 called again after
+   another input (equal tables). Times the probes: K6 and K7 by the
+   device's clock (torch.profiler's device time of everything a call
+   runs on the card, so K7's covers the zeroing of its table), cold
+   (the launches rotate over COLD_BUFFERS seeded index buffers, 128 MiB,
+   so every launch reads its indices from device memory) and warm (one
+   buffer, which the L2 keeps), beside the host's cost of one wrapper
+   call and the earlier method's reading (CUDA events around the Python
+   calls); K8 by both clocks; the CSR map/has against the packed path
+   and the two get_batched routes against each other.
 10. torch.profiler over a second packed call of map_kmers and of
    has_kmers: a summary line each on stdout with the call's host syncs
    (the ops that wait, by name, the runtime's synchronize calls and the
@@ -139,6 +153,10 @@ PEAK_INT32_OPS_PER_S = 16.75e12
 # lo, the compare of hi joined with it (one predicate instruction), the
 # add to the count, the select of the first node
 CMP_OPS = 4
+# K6 and K7 are timed over this many seeded index buffers in turn: 8 x 16
+# MiB at the probes' full size, several times the card's 50 MB L2, so that
+# each launch finds its indices in device memory as a caller's would be
+COLD_BUFFERS = 8
 # ops that make the host wait for the device
 SYNC_OPS = ("aten::nonzero", "aten::item", "aten::_local_scalar_dense")
 
@@ -256,6 +274,50 @@ def time_one(dev, fn, reps) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / reps
+
+
+def _device_us(event) -> float:
+    us = getattr(event, "self_device_time_total", None)
+    return us if us is not None else event.self_cuda_time_total
+
+
+def device_time(dev, calls, rounds) -> tuple[float, dict]:
+    """The device's own time for one call, in ms, and its parts by kernel
+    name: torch.profiler's device time of everything the card ran
+    (kernels, memsets, copies) while ``calls`` were made in turn
+    ``rounds`` times over, divided by the number of calls. The host's
+    pace does not enter: a gap between two launches is no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()  # warm-up: the build, the allocator's blocks
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for fn in calls:
+                fn()
+        sync(dev)
+    n = rounds * len(calls)
+    parts = {e.key: _device_us(e) / n / 1e3 for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    if not parts:
+        raise AssertionError("the profiler saw no device activity")
+    return sum(parts.values()), parts
+
+
+def host_call_time(dev, fn, reps) -> float:
+    """Host-clock mean of one call of ``fn`` in ms: what the host spends to
+    check, allocate and launch, with no wait for the device inside."""
+    fn()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    sync(dev)
+    return seconds / reps * 1e3
 
 
 def classify(t, q) -> torch.Tensor:
@@ -706,14 +768,16 @@ def time_hashing(dev, card, state, h, reps=10):
             for name, t in timed.items()}
 
 
-def probe_inputs(dev, gen, n_q, block_q, n_cmp, n_entries) -> dict:
+def probe_inputs(dev, gen, n_q, block_q, n_cmp, n_entries,
+                 n_cold=COLD_BUFFERS) -> dict:
     """Seeded inputs of the three probes at bench_primitives.py's shapes:
     n_q int32 indices into a (PROBE_ROWS, PROBE_COLS) int32 table of
-    values < 2^30 (K6, K7); n_cmp queries as (n_cmp / 128, 128) lo and hi
-    against n_entries table keys (K8), where every 16th entry repeats its
-    predecessor's key with its own node and a quarter of the queries take
-    a table entry's key, so that counts above 1 and the first-match rule
-    are exercised."""
+    values < 2^30 (K6, K7), and ``n_cold`` such index buffers for the
+    timings (``cold``; the first is ``idx``); n_cmp queries as
+    (n_cmp / 128, 128) lo and hi against n_entries table keys (K8), where
+    every 16th entry repeats its predecessor's key with its own node and a
+    quarter of the queries take a table entry's key, so that counts above
+    1 and the first-match rule are exercised."""
     rows, cols = primitives.PROBE_ROWS, primitives.PROBE_COLS
 
     def ints(hi, shape):
@@ -728,9 +792,76 @@ def probe_inputs(dev, gen, n_q, block_q, n_cmp, n_entries) -> dict:
     at = torch.randperm(n_cmp, device=dev, generator=gen)[:n_cmp // 4]
     pick = torch.randint(0, n_entries, at.shape, device=dev, generator=gen)
     qlo.view(-1)[at], qhi.view(-1)[at] = tlo[pick], thi[pick]
-    return dict(idx=ints(rows, (n_q,)), table=ints(1 << 30, (rows, cols)),
+    cold = [ints(rows, (n_q,)) for _ in range(n_cold)]
+    return dict(idx=cold[0], cold=cold, table=ints(1 << 30, (rows, cols)),
                 block_q=block_q,
                 cmp=(qlo, qhi, tlo, thi, ints(1 << 20, (n_entries,))))
+
+
+def skewed(idx: torch.Tensor, value: int) -> torch.Tensor:
+    """``idx`` with every second index set to ``value``: half of a warp's
+    increments then land on one counter."""
+    out = idx.clone()
+    out[::2] = value
+    return out
+
+
+def probe_edge_cases(p, gen) -> dict:
+    """{name: (idx, block_q, table)}: index sets that the designs of K6 and
+    K7 make risky. ``outside``: an eighth of the indices below 0 or past
+    the table. ``ragged``: an offset slice (its base is not 16-byte
+    aligned) cut in blocks that are no whole 16-byte vectors. ``skewed``:
+    half of the indices one value. ``narrow``: a table of 300 rows of 3
+    columns (rows that are no whole vectors either). ``tall``: one column
+    of as many rows as the shared memory takes."""
+    idx, table, block_q = p["idx"], p["table"], p["block_q"]
+    rows, n = table.shape[0], idx.shape[0]
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, (size,), dtype=torch.int32,
+                             device=idx.device, generator=gen)
+
+    odd_block = max(1, block_q // 8 - 3)
+    if odd_block % 4 == 0:
+        odd_block += 1
+    tall = primitives.SHARED_BYTES // 4
+    return {
+        "outside": (ints(-rows // 16, rows + rows // 16, n), block_q, table),
+        "ragged": (ints(0, rows, odd_block * 997 + 1)[1:], odd_block, table),
+        "skewed": (skewed(idx, rows // 3), block_q, table),
+        "narrow": (ints(-5, 305, odd_block * 64), odd_block,
+                   table[:300, :3].contiguous()),
+        "tall": (ints(-5, tall + 5, odd_block * 64), odd_block,
+                 ints(0, 1 << 30, tall).view(tall, 1))}
+
+
+def check_probe_edges(p, gen) -> int:
+    """K6 and K7 against their twins (exact) on probe_edge_cases, and K7
+    called again on its first input after another one: the two tables must
+    be equal (a stale scratch or an output that was not zeroed shows
+    here). Returns the max abs difference (0)."""
+    err = 0
+    cases = probe_edge_cases(p, gen)
+    for name, (idx, block_q, table) in cases.items():
+        n_c, cols = table.shape
+        err = max(err, assert_equal(
+            primitives.gather_loop(idx, table, block_q),
+            primitives.gather_loop_plain(idx, table, block_q),
+            f"K6 on the {name} indices"))
+        for c in (cols, 1):
+            err = max(err, assert_equal(
+                primitives.rmw_loop(idx, n_c, c),
+                primitives.rmw_loop_plain(idx, n_c, c),
+                f"K7 on the {name} indices, {c} columns"))
+    first = primitives.rmw_loop(p["idx"])
+    primitives.rmw_loop(cases["skewed"][0])
+    err = max(err, assert_equal(primitives.rmw_loop(p["idx"]), first,
+                                "K7 called again on its first input"))
+    sizes = {name: (case[0].shape[0], case[1]) for name, case in
+             cases.items()}
+    print(f"K6 and K7 == plain (exact) on (indices, block) {sizes}; K7 "
+          f"called again == its first table", flush=True)
+    return err
 
 
 def first_queries(read_kmers, n: int) -> torch.Tensor:
@@ -833,7 +964,8 @@ def check_lookup(dev, state, lk, n_sample, gen) -> dict:
     packed path's, both get_batched routes equal to each other and to
     join_rows on a sample of queries, the get API's rows equal to the
     uncapped rows of frequency <= GET_MAX_HITS, each probe equal to its
-    twin. Returns each probe's error fields for the kernels line."""
+    twin, K6 and K7 also on check_probe_edges' inputs. Returns each
+    probe's error fields for the kernels line."""
     if not (np.array_equal(lk["counts"], state["counts"])
             and np.array_equal(lk["member"], state["member"])):
         raise AssertionError("CSR counts or membership differ from the "
@@ -873,6 +1005,9 @@ def check_lookup(dev, state, lk, n_sample, gen) -> dict:
             p["idx"]), "K7 against its twin"),
         "bcast_cmp": assert_equal(lk["cmp"], primitives.bcast_cmp_plain(
             *p["cmp"]), "K8 against its twin")}
+    edge_err = check_probe_edges(p, gen)
+    for name in ("gather_loop", "rmw_loop"):
+        errs[name] = max(errs[name], edge_err)
     cnt = lk["cmp"][1]
     if int(cnt.max()) < 2 or not bool((cnt == 1).any()):
         raise AssertionError("K8's inputs hold no single and no repeated "
@@ -888,56 +1023,108 @@ def check_lookup(dev, state, lk, n_sample, gen) -> dict:
     return {name: {"max_abs_err": err} for name, err in errs.items()}
 
 
-def time_lookup(dev, card, state, lk, reps=100) -> dict:
-    """The probes against their twins (means of ``reps`` launches, K8
-    reps // 10), the CSR map/has against the packed path's and the two
-    get_batched routes against each other; every timed output is
-    compared; bincount beside K7 as the one PyTorch call that computes
-    its counts (no one call computes K6's wrapping block sums or K8's
-    count and first node). Prints the rates; returns {probe: the kernels
-    line's timed fields}."""
-    p = lk["probes"]
-    timed = {
-        "gather_loop": time_pair(
-            dev, lambda: primitives.gather_loop(p["idx"], p["table"],
-                                                p["block_q"]),
-            lambda: primitives.gather_loop_plain(p["idx"], p["table"],
-                                                 p["block_q"]),
-            reps, "K6 timed"),
-        "rmw_loop": time_pair(
-            dev, lambda: primitives.rmw_loop(p["idx"]),
-            lambda: primitives.rmw_loop_plain(p["idx"]), reps, "K7 timed"),
-        "bcast_cmp": time_pair(
-            dev, lambda: primitives.bcast_cmp(*p["cmp"]),
-            lambda: primitives.bcast_cmp_plain(*p["cmp"]), max(1, reps // 10),
-            "K8 timed")}
-    n_idx = p["idx"].shape[0]
+def probe_calls(table, block_q) -> dict:
+    """{probe: (kernel(idx), plain(idx))} of K6 and K7 on ``table``."""
+    rows, cols = table.shape
+    return {
+        "gather_loop": (
+            lambda idx: primitives.gather_loop(idx, table, block_q),
+            lambda idx: primitives.gather_loop_plain(idx, table, block_q)),
+        "rmw_loop": (lambda idx: primitives.rmw_loop(idx, rows, cols),
+                     lambda idx: primitives.rmw_loop_plain(idx, rows, cols))}
+
+
+def probe_bounds(n_idx, table, block_q) -> dict:
+    """K6 reads the indices and column 0 and writes a sum per block; K7
+    reads the indices and writes the whole counts table."""
+    rows, cols = table.shape
+    return {
+        "gather_loop": bound(4 * n_idx + 4 * rows + 4 * (n_idx // block_q)),
+        "rmw_loop": bound(4 * n_idx + 4 * rows * cols)}
+
+
+def time_probes(dev, card, p, reps=100) -> dict:
+    """K6, K7 and K8 against their twins; returns {probe: the kernels
+    line's timed fields}. ``ms`` of K6 and K7 is the device's own time
+    for one call (device_time: for K7 it covers the zeroing of the table,
+    whoever does it) on cold indices, the launches rotating over
+    p["cold"]; ``warm_ms`` the same on one buffer, ``host_call_ms`` the
+    host's cost of a wrapper call, ``events_ms`` what CUDA events around
+    ``reps`` Python calls read (the earlier method: the slower of host
+    and device). K8's ``ms`` stays by events (reps // 10 launches), with
+    ``device_ms`` and ``host_call_ms`` beside it. Every timed call's
+    output is compared with the twin's; bincount beside K7 as the one
+    PyTorch call that computes its counts (no one call computes K6's
+    wrapping block sums or K8's count and first node)."""
+    cold, table, block_q = p["cold"], p["table"], p["block_q"]
+    rows = table.shape[0]
+    n_idx = cold[0].shape[0]
     n_cmp, n_entries = p["cmp"][0].numel(), p["cmp"][2].shape[0]
-    rows, cols = p["table"].shape
-    idx64 = p["idx"].to(torch.int64)
+    rounds = max(1, reps // len(cold))
+    probes = probe_calls(table, block_q)
+    idx64 = cold[0].to(torch.int64)
     library = {"rmw_loop": time_one(
         dev, lambda: torch.bincount(idx64, minlength=rows), reps)}
-    # K6 reads the indices and column 0 and writes a sum per block; K7
-    # reads the indices and writes the whole counts table; K8 reads and
-    # writes two int32 per query and the table's three columns
-    bounds = {
-        "gather_loop": bound(4 * n_idx + 4 * rows
-                             + 4 * (n_idx // p["block_q"])),
-        "rmw_loop": bound(4 * n_idx + 4 * rows * cols),
-        "bcast_cmp": bound(16 * n_cmp + 12 * n_entries,
-                           CMP_OPS * n_cmp * n_entries)}
-    for name, items, unit in (("gather_loop", n_idx, "gathers"),
-                              ("rmw_loop", n_idx, "increments"),
-                              ("bcast_cmp", n_cmp * n_entries, "compares")):
-        ms, plain_ms, raw, _ = timed[name]
+    # K8 reads and writes two int32 per query and the table's three columns
+    bounds = {**probe_bounds(n_idx, table, block_q),
+              "bcast_cmp": bound(16 * n_cmp + 12 * n_entries,
+                                 CMP_OPS * n_cmp * n_entries)}
+    out = {}
+    for (name, (kernel, plain)), unit in zip(probes.items(),
+                                             ("gathers", "increments")):
+        for i, idx in enumerate(cold):
+            assert_equal(kernel(idx), plain(idx),
+                         f"{name} timed, cold buffer {i}")
+        cold_ms, parts = device_time(
+            dev, [lambda idx=idx: kernel(idx) for idx in cold], rounds)
+        warm_ms, _ = device_time(dev, [lambda: kernel(cold[0])],
+                                 rounds * len(cold))
+        host_ms = host_call_time(dev, lambda: kernel(cold[0]), reps)
+        events_ms = time_one(dev, lambda: kernel(cold[0]), reps)
+        plain_ms = time_one(dev, lambda: plain(cold[0]), max(1, reps // 10))
         lib_ms = library.get(name)
-        print(f"timing {name}: kernel {ms:.6f} ms ({items / ms / 1e6:.3f} G "
-              f"{unit}/s), plain {plain_ms:.6f} ms "
-              f"({items / plain_ms / 1e6:.3f} G {unit}/s), bound "
-              f"{bounds[name]['bound_ms']:.6f} ms by "
-              f"{bounds[name]['bound_by']}, one PyTorch call "
-              f"{'(bincount) %.6f ms' % lib_ms if lib_ms else 'none'}; "
-              f"kernel,kernel,plain,plain = {raw} [{card}]", flush=True)
+        out[name] = {"ms": cold_ms, "plain_ms": plain_ms, **bounds[name],
+                     "library_ms": lib_ms, "warm_ms": warm_ms,
+                     "host_call_ms": host_ms, "events_ms": events_ms}
+        bound_ms = bounds[name]["bound_ms"]
+        print(f"timing {name}: device clock, cold indices ({len(cold)} "
+              f"buffers of {n_idx} in turn) {cold_ms:.6f} ms "
+              f"({n_idx / cold_ms / 1e6:.3f} G {unit}/s), warm (one buffer) "
+              f"{warm_ms:.6f} ms; by kernel {parts}; host cost of a call "
+              f"{host_ms:.6f} ms; CUDA events around {reps} Python calls "
+              f"{events_ms:.6f} ms; plain {plain_ms:.6f} ms; bound "
+              f"{bound_ms:.6f} ms by {bounds[name]['bound_by']} "
+              f"({bound_ms / cold_ms:.4f} of the cold time); one PyTorch "
+              f"call {'(bincount) %.6f ms' % lib_ms if lib_ms else 'none'} "
+              f"[{card}]", flush=True)
+
+    def cmp_kernel():
+        return primitives.bcast_cmp(*p["cmp"])
+
+    ms, plain_ms, raw, _ = time_pair(
+        dev, cmp_kernel, lambda: primitives.bcast_cmp_plain(*p["cmp"]),
+        max(1, reps // 10), "K8 timed")
+    device_ms, _ = device_time(dev, [cmp_kernel], max(1, reps // 10))
+    host_ms = host_call_time(dev, cmp_kernel, max(1, reps // 10))
+    items = n_cmp * n_entries
+    out["bcast_cmp"] = {"ms": ms, "plain_ms": plain_ms,
+                        **bounds["bcast_cmp"], "library_ms": None,
+                        "device_ms": device_ms, "host_call_ms": host_ms}
+    print(f"timing bcast_cmp: kernel {ms:.6f} ms by CUDA events "
+          f"({items / ms / 1e6:.3f} G compares/s), {device_ms:.6f} ms by the "
+          f"device's clock, host cost of a call {host_ms:.6f} ms; plain "
+          f"{plain_ms:.6f} ms; bound {bounds['bcast_cmp']['bound_ms']:.6f} "
+          f"ms by {bounds['bcast_cmp']['bound_by']}, one PyTorch call none; "
+          f"kernel,kernel,plain,plain = {raw} [{card}]", flush=True)
+    return out
+
+
+def time_lookup(dev, card, state, lk, reps=100) -> dict:
+    """The probes (time_probes), the CSR map/has against the packed
+    path's and the two get_batched routes against each other; every timed
+    output is compared. Prints the rates; returns {probe: the kernels
+    line's timed fields}."""
+    timed = time_probes(dev, card, lk["probes"], reps)
 
     csr, packed = lk["csr"].device_index, state["index"].device_index
     read_kmers, n_nodes = state["read_kmers"], state["n_nodes"]
@@ -963,14 +1150,7 @@ def time_lookup(dev, card, state, lk, reps=100) -> dict:
           f"searchsorted route {ms_s:.6f} ms "
           f"({q.shape[0] / ms_s / 1e6:.3f} G queries/s); tables,tables,"
           f"searchsorted,searchsorted = {raw} [{card}]", flush=True)
-    return {name: {"ms": t[0], "plain_ms": t[1], **bounds[name],
-                   "library_ms": library.get(name)}
-            for name, t in timed.items()}
-
-
-def _device_us(event) -> float:
-    us = getattr(event, "self_device_time_total", None)
-    return us if us is not None else event.self_cuda_time_total
+    return timed
 
 
 def profile_lookup(dev, card, state, path, csr=None):

@@ -13,6 +13,7 @@ through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -114,9 +115,10 @@ def library() -> ctypes.CDLL:
     lib.gki_stream_sum.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
     lib.gki_stream_sum.restype = ctypes.c_int
     lib.gki_gather_loop.argtypes = [ptr, ptr, i64, ctypes.c_int, i64,
-                                    ctypes.c_int, ptr, ptr]
+                                    ctypes.c_int, ptr, ptr, ptr]
     lib.gki_gather_loop.restype = ctypes.c_int
-    lib.gki_rmw_loop.argtypes = [ptr, i64, ctypes.c_int, i64, ptr, ptr]
+    lib.gki_rmw_loop.argtypes = [ptr, i64, ctypes.c_int, i64, ptr, ptr,
+                                 ctypes.c_int, ptr]
     lib.gki_rmw_loop.restype = ctypes.c_int
     lib.gki_bcast_cmp.argtypes = [ptr, ptr, i64, ptr, ptr, ptr,
                                   ctypes.c_int, ptr, ptr, ptr]
@@ -126,6 +128,14 @@ def library() -> ctypes.CDLL:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_guard(device: torch.device):
+    """A context in which ``device`` is the current CUDA device; it costs
+    nothing where it already is."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_launch(name: str, err: int) -> None:

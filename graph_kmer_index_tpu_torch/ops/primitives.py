@@ -19,9 +19,13 @@ read-modify-write count; ``bcast_cmp`` (K8; ``k_pallas_bcast_cmp``), per
 query (lo, hi) the number of matching table entries and the node of the
 first match (else 0), a broadcast key compare. An index outside the
 table counts nothing in K6 and K7. Each kernel stages its table in shared
-memory, so a table must fit in SHARED_BYTES.
+memory, so a table must fit in SHARED_BYTES. K6 and K7 take indices of
+any length and at any 4-byte offset (a slice of a tensor): what is no whole
+16-byte vector they read as scalars.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -151,6 +155,13 @@ def _check_device(first: torch.Tensor, **others: torch.Tensor) -> None:
                              f"{t.device}")
 
 
+def _require_cuda(t: torch.Tensor, name: str) -> None:
+    """The device half of _kernels.check_cuda_tensor, for a wrapper whose
+    argument check holds type, rank and layout already."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+
+
 def _check_shared(n_words: int, what: str) -> None:
     if n_words * 4 > SHARED_BYTES:
         raise ValueError(f"{what} takes {n_words * 4} bytes of shared "
@@ -184,26 +195,36 @@ def gather_loop_plain(idx: torch.Tensor, table: torch.Tensor,
     return _i32_bits(sums)
 
 
+def launch_gather_loop(lib, idx: torch.Tensor, table: torch.Tensor,
+                       block_q: int) -> torch.Tensor:
+    """K6 of the kernel library ``lib`` on checked CUDA tensors: one
+    cooperative launch of at most a thread block an SM, which packs the
+    table's column 0 into a scratch before it gathers from it."""
+    n_q = idx.shape[0]
+    out = torch.empty(n_q // block_q, dtype=torch.int32, device=idx.device)
+    if n_q == 0:
+        return out
+    # column 0 packed, in whole 16-byte vectors
+    scratch = torch.empty((table.shape[0] + 3) // 4 * 4, dtype=torch.int32,
+                          device=idx.device)
+    with _kernels.device_guard(idx.device):
+        err = lib.gki_gather_loop(idx.data_ptr(), table.data_ptr(), n_q,
+                                  table.shape[0], table.shape[1], block_q,
+                                  out.data_ptr(), scratch.data_ptr(),
+                                  _kernels.stream_handle(idx.device))
+    _kernels.check_launch("gather_loop", err)
+    _kernels.launch_counts["gather_loop"] += 1
+    return out
+
+
 def gather_loop(idx: torch.Tensor, table: torch.Tensor,
                 block_q: int = PROBE_BLOCK) -> torch.Tensor:
     """Per-block gather sums: kernel K6 on CUDA, the plain twin on CPU."""
     if idx.device.type == "cpu":
         return gather_loop_plain(idx, table, block_q)
-    _kernels.check_cuda_tensor(idx, "idx", torch.int32, 1)
+    _require_cuda(idx, "idx")
     _check_gather_args(idx, table, block_q)
-    n_blocks = idx.shape[0] // block_q
-    out = torch.empty(n_blocks, dtype=torch.int32, device=idx.device)
-    if n_blocks == 0:
-        return out
-    lib = _kernels.library()
-    with torch.cuda.device(idx.device):
-        err = lib.gki_gather_loop(idx.data_ptr(), table.data_ptr(),
-                                  idx.shape[0], table.shape[0],
-                                  table.shape[1], block_q, out.data_ptr(),
-                                  _kernels.stream_handle(idx.device))
-    _kernels.check_launch("gather_loop", err)
-    _kernels.launch_counts["gather_loop"] += 1
-    return out
+    return launch_gather_loop(_kernels.library(), idx, table, block_q)
 
 
 def _check_rmw_args(idx: torch.Tensor, n_c: int, cols: int) -> None:
@@ -226,25 +247,41 @@ def rmw_loop_plain(idx: torch.Tensor, n_c: int = PROBE_ROWS,
     return counts
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_rmw_loop(lib, idx: torch.Tensor, n_c: int,
+                    cols: int) -> torch.Tensor:
+    """K7 of the kernel library ``lib`` on a checked CUDA tensor: one
+    cooperative launch of a thread block an SM, which writes the whole
+    table (zeros included) and needs a scratch row of ``n_c`` counts per
+    block."""
+    dev = idx.device
+    if idx.shape[0] == 0:
+        return torch.zeros((n_c, cols), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_c, cols), dtype=torch.int32, device=dev)
+    n_grid = _sm_count(dev)
+    scratch = torch.empty((n_grid, n_c), dtype=torch.int32, device=dev)
+    with _kernels.device_guard(dev):
+        err = lib.gki_rmw_loop(idx.data_ptr(), idx.shape[0], n_c, cols,
+                               counts.data_ptr(), scratch.data_ptr(),
+                               n_grid, _kernels.stream_handle(dev))
+    _kernels.check_launch("rmw_loop", err)
+    _kernels.launch_counts["rmw_loop"] += 1
+    return counts
+
+
 def rmw_loop(idx: torch.Tensor, n_c: int = PROBE_ROWS,
              cols: int = PROBE_COLS) -> torch.Tensor:
     """Index counts in column 0: kernel K7 on CUDA, the plain twin on
     CPU."""
     if idx.device.type == "cpu":
         return rmw_loop_plain(idx, n_c, cols)
-    _kernels.check_cuda_tensor(idx, "idx", torch.int32, 1)
+    _require_cuda(idx, "idx")
     _check_rmw_args(idx, n_c, cols)
-    counts = torch.zeros((n_c, cols), dtype=torch.int32, device=idx.device)
-    if idx.shape[0] == 0:
-        return counts
-    lib = _kernels.library()
-    with torch.cuda.device(idx.device):
-        err = lib.gki_rmw_loop(idx.data_ptr(), idx.shape[0], n_c, cols,
-                               counts.data_ptr(),
-                               _kernels.stream_handle(idx.device))
-    _kernels.check_launch("rmw_loop", err)
-    _kernels.launch_counts["rmw_loop"] += 1
-    return counts
+    return launch_rmw_loop(_kernels.library(), idx, n_c, cols)
 
 
 def _check_cmp_args(qlo, qhi, tlo, thi, tnode) -> None:

@@ -79,11 +79,39 @@ def _gather_step(idx, table, block_q):
     return ((i + out[i % n_blocks]) % table.shape[0]).numpy()
 
 
-@pytest.mark.parametrize("inputs", ["seeded", "planted"])
+def _offset_slice(a, offset):
+    """A tensor equal to ``a`` that starts ``offset`` int32 into a larger
+    one: contiguous, its base 4 * offset bytes off the allocation's."""
+    base = torch.full((a.shape[0] + offset + 5,), -7, dtype=torch.int32)
+    base[offset:offset + a.shape[0]] = _t(a)
+    view = base[offset:offset + a.shape[0]]
+    assert view.is_contiguous()
+    if a.shape[0]:  # an empty tensor has no base
+        assert view.data_ptr() == base.data_ptr() + 4 * offset
+    return view
+
+
+def _half_one_value(idx, value):
+    out = idx.copy()
+    out[::2] = value
+    return out
+
+
+@pytest.mark.parametrize("inputs", ["seeded", "planted", "skewed", "offset"])
 def test_gather_loop_matches_pallas(bench, inputs):
     run, idx, (table,) = _capture(bench, "k_pallas_gather_loop")
     idx, table = np.asarray(idx), np.asarray(table)
     block_q = 1 << 10  # the benchmark's small block
+    if inputs == "skewed":
+        idx = _half_one_value(idx, table.shape[0] // 3)
+    if inputs == "offset":
+        want = np.asarray(run(idx, table))
+        out = primitives.gather_loop(_offset_slice(idx, 3), _t(table),
+                                     block_q)
+        i = _t(idx)
+        got = (i + out[i % (idx.shape[0] // block_q)]) % table.shape[0]
+        assert np.array_equal(got.numpy(), want)
+        return
     if inputs == "planted":
         rng = np.random.default_rng(5)
         # values near 2^30: a block of 1024 sums past 2^31 and wraps
@@ -118,6 +146,21 @@ def test_gather_loop_plain_matches_numpy():
     assert np.array_equal(got.numpy(), _gather_oracle(idx, table, 256))
 
 
+@pytest.mark.parametrize("n_blocks,block_q,offset", [
+    (7, 1021, 1), (5, 3, 3), (9, 1, 0), (2, 8190, 2), (3, 4, 1), (1, 4099, 0)])
+def test_gather_loop_takes_ragged_blocks_and_offset_slices(n_blocks, block_q,
+                                                           offset):
+    """Blocks that are no whole 16-byte vectors, from a base that is not
+    16-byte aligned: nothing is refused, and the sums equal numpy's."""
+    rng = np.random.default_rng(block_q)
+    table = rng.integers(-(1 << 31), 1 << 31, (300, 3)).astype(np.int32)
+    idx = rng.integers(-20, 320, n_blocks * block_q).astype(np.int32)
+    got = primitives.gather_loop(_offset_slice(idx, offset), _t(table),
+                                 block_q)
+    assert got.shape == (n_blocks,)
+    assert np.array_equal(got.numpy(), _gather_oracle(idx, table, block_q))
+
+
 # -- K7 rmw_loop ------------------------------------------------------------------
 
 def _rmw_step(idx, n_c):
@@ -127,11 +170,28 @@ def _rmw_step(idx, n_c):
     return ((i + counts[i % n_c, 0]) % n_c).numpy()
 
 
-@pytest.mark.parametrize("inputs", ["seeded", "planted"])
+@pytest.mark.parametrize("inputs", ["seeded", "planted", "skewed", "offset",
+                                    "twice"])
 def test_rmw_loop_matches_pallas(bench, inputs):
     run, idx, _ = _capture(bench, "k_pallas_rmw_loop")
     idx = np.asarray(idx)
     n_c = primitives.PROBE_ROWS
+    if inputs == "skewed":
+        idx = _half_one_value(idx, n_c // 3)
+    if inputs == "offset":
+        counts = primitives.rmw_loop(_offset_slice(idx, 1), n_c,
+                                     primitives.PROBE_COLS)
+        i = _t(idx)
+        got = ((i + counts[i % n_c, 0]) % n_c).numpy()
+        assert np.array_equal(got, np.asarray(run(idx)))
+        return
+    if inputs == "twice":
+        # another input in between: the second table owes it nothing
+        first = primitives.rmw_loop(_t(idx), n_c, primitives.PROBE_COLS)
+        primitives.rmw_loop(_t(_half_one_value(idx, 5)), n_c,
+                            primitives.PROBE_COLS)
+        again = primitives.rmw_loop(_t(idx), n_c, primitives.PROBE_COLS)
+        assert torch.equal(first, again)
     if inputs == "planted":
         rng = np.random.default_rng(6)
         idx = np.where(rng.random(idx.shape) < 0.8, n_c - 1,
@@ -149,6 +209,80 @@ def test_rmw_loop_plain_matches_numpy():
         if 0 <= j < 64:
             want[j, 0] += 1
     assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_q,n_c,cols,offset", [
+    (5003, 64, 3, 1), (3, 300, 1, 2), (1, 1, 1, 0), (4097, 131, 2, 3),
+    (1 << 12, 12288, 1, 0), (0, 8, 4, 0)])
+def test_rmw_loop_takes_ragged_lengths_and_offset_slices(n_q, n_c, cols,
+                                                         offset):
+    """Lengths that are no whole 16-byte vectors, from a base that is not
+    16-byte aligned, into tables of any shape: nothing is refused, and the
+    counts equal numpy's."""
+    rng = np.random.default_rng(n_q)
+    idx = rng.integers(-5, n_c + 6, n_q).astype(np.int32)
+    got = primitives.rmw_loop(_offset_slice(idx, offset), n_c, cols).numpy()
+    want = np.zeros((n_c, cols), np.int32)
+    np.add.at(want[:, 0], idx[(idx >= 0) & (idx < n_c)], 1)
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
+class _RecordingLibrary:
+    """Stands in for the kernel library: keeps each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def gki_gather_loop(self, *args):
+        self.calls.append(("gather_loop", args))
+        return 0
+
+    def gki_rmw_loop(self, *args):
+        self.calls.append(("rmw_loop", args))
+        return 7  # a refused launch
+
+
+def test_probe_launchers_size_their_outputs_and_scratch(monkeypatch):
+    """What the launchers hand to the kernels, on CPU tensors with the CUDA
+    calls stood in for: K6 gets a scratch of the table's rows in whole
+    16-byte vectors, K7 an output it need not zero and a scratch row per
+    thread block (one an SM); an empty batch launches nothing; a launch
+    that the card refuses raises."""
+    import contextlib
+
+    from graph_kmer_index_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(_kernels, "device_guard",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(_kernels, "stream_handle", lambda device: 11)
+    monkeypatch.setattr(primitives, "_sm_count", lambda device: 6)
+    lib = _RecordingLibrary()
+    idx = torch.zeros(2048, dtype=torch.int32)
+    table = torch.zeros((301, 3), dtype=torch.int32)
+    before = dict(_kernels.launch_counts)
+    monkeypatch.setattr(_kernels, "launch_counts", dict(before))
+    out = primitives.launch_gather_loop(lib, idx, table, 512)
+    assert out.shape == (4,) and out.dtype == torch.int32
+    (name, args), = lib.calls
+    assert name == "gather_loop"
+    assert args[:2] == (idx.data_ptr(), table.data_ptr())
+    assert args[2:7] == (2048, 301, 3, 512, out.data_ptr())
+    assert args[8] == 11 and args[7] not in (0, out.data_ptr())
+    with pytest.raises(RuntimeError, match="rmw_loop launch failed: CUDA "
+                       "error 7"):
+        primitives.launch_rmw_loop(lib, idx, 64, 5)
+    name, args = lib.calls[-1]
+    assert name == "rmw_loop" and args[:4] == (idx.data_ptr(), 2048, 64, 5)
+    assert args[6:] == (6, 11) and args[4] != args[5]
+    empty = idx[:0]
+    assert primitives.launch_gather_loop(lib, empty, table, 512).shape == (0,)
+    counts = primitives.launch_rmw_loop(lib, empty, 64, 5)
+    assert counts.shape == (64, 5) and not counts.any()
+    assert len(lib.calls) == 2
+    # one launch counted; the refused one and the empty ones are not
+    after = _kernels.launch_counts
+    assert after["gather_loop"] == before["gather_loop"] + 1
+    assert after["rmw_loop"] == before["rmw_loop"]
 
 
 # -- K8 bcast_cmp -----------------------------------------------------------------

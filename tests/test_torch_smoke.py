@@ -1,7 +1,10 @@
 """chip_smoke.py's phases rehearsed on the CPU at a tiny size (the script's
-entry point itself refuses a machine without CUDA), plus the kernel
-build helpers and the synthetic data generator."""
+entry point itself refuses a machine without CUDA), chip_compare.py's
+argument parsing, plus the kernel build helpers and the synthetic data
+generator."""
 import importlib.util
+import subprocess
+import sys
 from pathlib import Path
 
 import jax  # noqa: F401  (same process set-up as the other port tests)
@@ -87,7 +90,9 @@ def test_smoke_lookup_phase_on_cpu(tmp_path, capsys, monkeypatch):
     args = cs.parse_args(["--genome-bases", "120000", "--reads", "1500"])
     state = cs.main_path(dev, "CPU", args, tmp_path)
     # bench_primitives.py's small sizes
-    probes = cs.probe_inputs(dev, gen, 1 << 12, 1 << 10, 2048, 32)
+    probes = cs.probe_inputs(dev, gen, 1 << 12, 1 << 10, 2048, 32, n_cold=3)
+    assert len(probes["cold"]) == 3 and probes["cold"][0] is probes["idx"]
+    assert not torch.equal(probes["cold"][1], probes["cold"][2])
     lk = cs.lookup_path(dev, "CPU", state, probes, 100_003, 4096, gen)
     assert lk["default_route"] == "tables"  # 1.2 MB of tables: cheap
     assert lk["csr"].device_index.packed() is None
@@ -102,16 +107,37 @@ def test_smoke_lookup_phase_on_cpu(tmp_path, capsys, monkeypatch):
         return 1.0, 2.0, (1.0, 1.0, 2.0, 2.0), compare(kernel(), plain(),
                                                         what)
 
-    # the CUDA-event timers need a card: compare the timed calls only
+    device_calls = []
+
+    def host_device_time(dev, calls, rounds):
+        device_calls.append((len(calls), rounds))
+        for fn in calls:
+            fn()
+        return 0.5 * len(calls), {"a_kernel": 0.5 * len(calls)}
+
+    # the CUDA-event timers and the profiler's device clock need a card:
+    # make the timed calls only
     monkeypatch.setattr(cs, "time_pair", host_pair)
     monkeypatch.setattr(cs, "time_one", lambda dev, fn, reps: fn() is None
                         or 3.0)
+    monkeypatch.setattr(cs, "device_time", host_device_time)
+    monkeypatch.setattr(cs, "host_call_time", lambda dev, fn, reps:
+                        fn() is None or 0.25)
     timed = cs.time_lookup(dev, "CPU", state, lk)
     assert sorted(timed) == sorted(cs.LOOKUP_KERNELS)
+    base = ["bound_by", "bound_ms", "library_ms", "ms", "plain_ms"]
     for name, fields in timed.items():
-        assert sorted(fields) == ["bound_by", "bound_ms", "library_ms", "ms",
-                                  "plain_ms"]
-        assert fields["bound_ms"] > 0
+        extra = (["device_ms", "host_call_ms"] if name == "bcast_cmp" else
+                 ["events_ms", "host_call_ms", "warm_ms"])
+        assert sorted(fields) == sorted(base + extra)
+        assert fields["bound_ms"] > 0 and fields["host_call_ms"] == 0.25
+    # K6 and K7: cold over the three buffers (100 // 3 rounds), warm on one
+    # buffer as many launches; K8 once
+    assert device_calls == [(3, 33), (1, 99), (3, 33), (1, 99), (1, 10)]
+    for name in ("gather_loop", "rmw_loop"):
+        assert timed[name]["ms"] == 1.5 and timed[name]["warm_ms"] == 0.5
+        assert timed[name]["events_ms"] == 3.0
+    assert timed["bcast_cmp"]["ms"] == 1.0
     assert timed["rmw_loop"]["library_ms"] == 3.0
     assert timed["gather_loop"]["library_ms"] is None
     assert timed["bcast_cmp"]["library_ms"] is None
@@ -120,6 +146,14 @@ def test_smoke_lookup_phase_on_cpu(tmp_path, capsys, monkeypatch):
     assert timed["rmw_loop"]["bound_by"] == "bytes"
     out = capsys.readouterr().out
     assert "one PyTorch call (bincount) 3.000000 ms" in out
+    assert "cold indices (3 buffers of 4096 in turn) 1.500000 ms" in out
+    assert "host cost of a call 0.250000 ms" in out
+    # the inputs that the probes' designs make risky went through K6 and K7
+    assert ("K6 and K7 == plain (exact) on (indices, block) {'outside': "
+            "(4096, 1024), 'ragged': (124625, 125), 'skewed': (4096, 1024), "
+            "'narrow': (8000, 125), 'tall': (8000, 125)}; K7 called again "
+            "== its first table"
+            ) in out
     assert "CSR counts and membership == the packed path's" in out
     assert "== the join on 500 sampled queries" in out
     assert "timing get_batched on 4096 queries" in out
@@ -127,6 +161,94 @@ def test_smoke_lookup_phase_on_cpu(tmp_path, capsys, monkeypatch):
     lk["get_tables"] = lk["get_tables"][:, 1:]
     with pytest.raises(AssertionError, match="searchsorted route"):
         cs.check_lookup(dev, state, lk, 500, gen)
+
+
+def test_smoke_probe_edge_cases_and_timers_on_cpu(capsys):
+    """The index sets that the designs of K6 and K7 make risky, and the two
+    timers as far as a machine without a card can run them."""
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    probes = cs.probe_inputs(dev, gen, 1 << 13, 1 << 11, 256, 16, n_cold=1)
+    cases = cs.probe_edge_cases(probes, gen)
+    assert sorted(cases) == ["narrow", "outside", "ragged", "skewed",
+                             "tall"]
+    rows = probes["table"].shape[0]
+    idx, block_q, table = cases["outside"]
+    assert int(idx.min()) < 0 and int(idx.max()) >= rows
+    idx, block_q, table = cases["ragged"]
+    assert block_q % 4 and idx.shape[0] % block_q == 0
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4
+    idx, block_q, table = cases["skewed"]
+    assert int((idx == rows // 3).sum()) >= idx.shape[0] // 2
+    idx, block_q, table = cases["narrow"]
+    assert tuple(table.shape) == (300, 3) and table.is_contiguous()
+    assert block_q % 4 and int(idx.min()) < 0 and int(idx.max()) >= 300
+    idx, block_q, table = cases["tall"]
+    assert tuple(table.shape) == (cs.primitives.SHARED_BYTES // 4, 1)
+    assert int(idx.max()) >= table.shape[0] - 2000
+    assert cs.check_probe_edges(probes, gen) == 0
+    assert "K7 called again == its first table" in capsys.readouterr().out
+    # the device's clock needs a device: no card, no number
+    with pytest.raises(AssertionError, match="no device activity"):
+        cs.device_time(dev, [lambda: torch.zeros(8)], 2)
+    calls = []
+    ms = cs.host_call_time(dev, lambda: calls.append(1), 5)
+    assert len(calls) == 6 and ms >= 0  # one warm-up, five timed
+
+
+_COMPARE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["graph_kmer_index_tpu"] = None
+import chip_compare
+args = chip_compare.parse_args(["--parent-csrc", "p/csrc", "--design-csrc",
+                                "a", "--design-csrc", "b", "--reps", "50"])
+assert str(args.parent_csrc) == "p/csrc" and args.reps == 50
+assert [str(d) for d in args.design_csrc] == ["a", "b"] and args.seed == 0
+assert chip_compare.parse_args(["--parent-csrc", "p"]).design_csrc == []
+try:
+    chip_compare.parse_args([])
+except SystemExit as e:
+    assert e.code == 2
+else:
+    raise AssertionError("--parent-csrc is required")
+import torch
+if not torch.cuda.is_available():
+    try:
+        chip_compare.main(["--parent-csrc", "p"])
+    except SystemExit as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("ran without a card")
+assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
+print("ok")
+"""
+
+
+def test_compare_imports_and_parses_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _COMPARE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_compare_takes_turns_forwards_and_backwards():
+    spec = importlib.util.spec_from_file_location("chip_compare",
+                                                  ROOT / "chip_compare.py")
+    cc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cc)
+    order = []
+
+    def measure(call):
+        order.append(call)
+        return float(len(order))
+
+    times = cc.in_turns(measure, {"new": "n", "parent": "p", "design": "d"})
+    assert order == ["n", "p", "d", "d", "p", "n"]
+    assert times == {"new": (3.5, 1.0, 6.0), "parent": (3.5, 2.0, 5.0),
+                     "design": (3.5, 3.0, 4.0)}
 
 
 def test_smoke_join_applies_the_caps(tmp_path):
@@ -169,8 +291,15 @@ def test_smoke_bounds_and_kernel_entries():
     errs = {name: {"max_abs_err": 0} for name in launches}
     timed = {name: {"ms": 1.0, "plain_ms": 2.0, "library_ms": None,
                     **cs.bound(nbytes=1e6)} for name in launches}
+    for name in ("gather_loop", "rmw_loop"):
+        timed[name].update(warm_ms=0.5, host_call_ms=0.25, events_ms=0.3)
     entries = cs.kernel_entries(launches, launches, launches, errs, timed)
     assert [e["name"] for e in entries] == list(_kernels.launch_counts)
+    by_name = {e["name"]: e for e in entries}
+    for name in ("gather_loop", "rmw_loop"):
+        assert by_name[name]["warm_ms"] == 0.5
+        assert by_name[name]["host_call_ms"] == 0.25
+    assert "warm_ms" not in by_name["stream_copy"]
     for entry in entries:
         assert set(cs.KERNEL_KEYS) <= set(entry)
         assert (ROOT / entry["source"]).exists()
