@@ -8,7 +8,9 @@
 2. Builds the hand-written kernels from the checkout's sources (one nvcc
    per source, all at once): K1 (csrc/sliding_hash.cu), K2
    (csrc/packed_lookup.cu), K3 (csrc/sliding_pack.cu), K4 and K5
-   (csrc/stream.cu), K6-K8 (csrc/probes.cu).
+   (csrc/stream.cu), K6-K8 (csrc/probes.cu); and the native host library
+   (g++ over csrc/host/gki.cpp and walker.cpp), which it requires: the
+   reads' parse and the build path's walk run in it.
 3. Holds K1 against its plain PyTorch twin on the card (bit-exact).
 4. Drives the read-mapping path at chromosome scale, all from --seed: a
    150 Mb genome with planted repeats (a poly-A run, 0.5% copied
@@ -86,6 +88,29 @@
    With ``--profile PATH`` the CSR calls are profiled too and the
    operator tables are written to PATH.
 
+11. The build path (bench_chromosome.py's build in the port; its
+   launches counted from 0 as well, after every earlier path's state is
+   freed). A synthetic SNP/indel graph of
+   ``--build-bases`` bases and ``--build-variants`` variants
+   (random_snp_graph, 10% indels) -> CriticalGraphPaths.from_graph ->
+   find_kmers_parallel_device: 4 spawned workers walk the graph with the
+   native span walker (required: a chunk that took the Python walker
+   raises) while the parent expands the span groups on the card (K1
+   hashes each tape) -> KmerIndex.from_flat_kmers at modulo 452,930,477
+   with frequencies -> the packed table -> ``--build-reads`` reads of
+   150 bp sampled from the graph's linear reference, hashed on the card
+   and mapped to node counts (K2). Checks: the row count equals the
+   spans' windows x nodes; the node counts equal an independent join on
+   the card; K1 and K2 were launched; K1 equals its twin on a tape of the
+   largest group's length; and on a second graph of ``--check-bases``
+   bases the four columns of find_kmers_parallel_device on the card equal
+   find_kmers_parallel on the host (native finalize_rows) bit for bit,
+   and the index built from them has the bucket tables and frequencies of
+   an independent numpy build. Prints a stage line each (graph, critical
+   paths, streamed find with rows, rows/s, groups and the card's idle
+   share inside it by torch.profiler's device time, index build, packed
+   table, read mapping) and the path's peak device memory.
+
 Any failed check raises before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
@@ -104,12 +129,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from graph_kmer_index_tpu_torch import KmerIndex, hash_fasta_file  # noqa: E402
+from graph_kmer_index_tpu_torch import (  # noqa: E402
+    CriticalGraphPaths, DeviceReadKmers, KmerIndex, hash_fasta_file, native)
 from graph_kmer_index_tpu_torch.hashing import (  # noqa: E402
     kmer_hashes_to_reverse_complement_hash, sliding_window_hashes)
 from graph_kmer_index_tpu_torch.ops import _kernels  # noqa: E402
 from graph_kmer_index_tpu_torch.ops import (  # noqa: E402
     encode, lookup, primitives)
+from graph_kmer_index_tpu_torch.parallel.host_pool import (  # noqa: E402
+    find_kmers_parallel, find_kmers_parallel_device)
 from graph_kmer_index_tpu_torch.utils import synthetic  # noqa: E402
 
 K1_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_hash.cu"
@@ -132,6 +160,12 @@ READ_MAPPING_KERNELS = ("sliding_hash", "packed_lookup")
 HASHING_KERNELS = ("sliding_pack_p16", "sliding_pack_p8", "stream_copy",
                    "stream_sum")
 LOOKUP_KERNELS = ("gather_loop", "rmw_loop", "bcast_cmp")
+BUILD_KERNELS = ("sliding_hash", "packed_lookup")
+# the build path: bench_chromosome.py's worker count and stream targets,
+# and the modulo of the small graph's index, which a numpy build repeats
+BUILD_WORKERS = 4
+STREAM_TARGET = 24_000_000
+CHECK_MODULO = 15_485_863
 # the CSR index of the lookup path: the reference's default modulo, and
 # the get_batched batch and its sample checked against a join
 REF_MODULO = 452_930_477
@@ -384,7 +418,7 @@ def main_path(dev, card, args, workdir):
                                  stage_seconds=stages)
     total = time.perf_counter() - t0
     n_q = len(read_kmers)
-    for name in ("parse", "upload", "hash"):
+    for name in ("read", "parse", "upload", "hash"):
         st.report(f"reads {name}", stages.get(name, 0.0))
     st.report("hash_fasta_file total", total,
               f", {n_q} query k-mers, {n_q / total:.1f} k-mers/s")
@@ -403,6 +437,20 @@ def main_path(dev, card, args, workdir):
                 counts=counts, member=member)
 
 
+def join_counts(table_kmers, table_nodes, queries, n_nodes) -> torch.Tensor:
+    """Node counts by a join that shares no code with the lookup: every
+    table row adds the number of queries equal to its k-mer (nodes >=
+    n_nodes dropped)."""
+    uq, qc = torch.unique(queries, return_counts=True)
+    ref = torch.zeros(n_nodes, dtype=torch.int64, device=queries.device)
+    if uq.shape[0] == 0:
+        return ref
+    pos = torch.searchsorted(uq, table_kmers).clamp(max=uq.shape[0] - 1)
+    match = (uq[pos] == table_kmers) & (table_nodes < n_nodes)
+    ref.index_add_(0, table_nodes[match], qc[pos[match]])
+    return ref
+
+
 def check_results(dev, state, k, n_sample, rng):
     """Counts and membership against an independent join on the device;
     sampled reads' hashes against numpy."""
@@ -414,13 +462,7 @@ def check_results(dev, state, k, n_sample, rng):
     if counts.shape != (n_nodes,) or member.shape != queries.shape:
         raise AssertionError("result shapes differ from the contract")
 
-    # counts: every table row adds the number of queries equal to its k-mer
-    uq, qc = torch.unique(queries, return_counts=True)
-    pos = torch.searchsorted(uq, index.kmers).clamp(max=uq.shape[0] - 1)
-    match = uq[pos] == index.kmers
-    ref = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
-    ref.index_add_(0, index.nodes[match], qc[pos[match]])
-    del uq, qc, pos, match
+    ref = join_counts(index.kmers, index.nodes, queries, n_nodes)
     if not torch.equal(counts, ref):
         raise AssertionError(f"counts differ from the join at "
                              f"{int((counts != ref).sum())} nodes")
@@ -898,17 +940,25 @@ def lookup_path(dev, card, state, probes, modulo, n_get, gen) -> dict:
                            n_nodes)
     out["member"] = st.run("CSR has_kmers", csr.has_kmers, read_kmers)
 
-    searched = lookup.DeviceKmerIndex(csr)
-    default_route = ("tables" if searched._bucket_tables_cheap()
+    default_route = ("tables" if csr.device_index._bucket_tables_cheap()
                      else "searchsorted")
+    # the searchsorted route serves an index whose bucket tables are not
+    # on the device and too large to move: here, the rows alone
+    searched = lookup.DeviceKmerIndex(KmerIndex(
+        csr.kmers, csr.nodes, modulo, ref_offsets=csr.ref_offsets,
+        frequencies=csr.frequencies,
+        allele_frequencies=csr.allele_frequencies, dtypes=csr.dtypes))
     searched.BUCKET_TABLE_BYTE_BUDGET = 0
     tabled = lookup.DeviceKmerIndex(csr)
     tabled.BUCKET_TABLE_BYTE_BUDGET = 1 << 62
+    if searched._bucket_tables_cheap() or not tabled._bucket_tables_cheap():
+        raise AssertionError("the two get_batched views share a route")
     q = first_queries(read_kmers, n_get)
     print(f"CSR index: {n} rows at modulo {modulo}, max bucket "
-          f"{searched.max_scan}; get_batched's default route: "
-          f"{default_route} (the budget counts 12 B per bucket, "
-          f"{12 * modulo} bytes, against "
+          f"{tabled.max_scan}; get_batched's default route: "
+          f"{default_route} (tables that the build left on the device are "
+          f"taken as they are; to move them the budget counts 12 B per "
+          f"bucket, {12 * modulo} bytes, against "
           f"{lookup.DeviceKmerIndex.BUCKET_TABLE_BYTE_BUDGET})", flush=True)
     out.update(q=q, searched=searched, tabled=tabled,
                default_route=default_route)
@@ -916,6 +966,8 @@ def lookup_path(dev, card, state, probes, modulo, n_get, gen) -> dict:
                                  searched.get_batched, q)
     out["get_tables"] = st.run("get_batched (tables route)",
                                tabled.get_batched, q)
+    if "starts_tbl" in searched._cache or "starts_tbl" not in tabled._cache:
+        raise AssertionError("a get_batched view took the other's route")
     out["get_api"] = st.run(
         "get_nodes_and_ref_offsets_from_multiple_kmers",
         csr.get_nodes_and_ref_offsets_from_multiple_kmers, q, GET_MAX_HITS)
@@ -1217,16 +1269,256 @@ def profile_lookup(dev, card, state, path, csr=None):
     return syncs
 
 
+def require_native() -> None:
+    """The build path walks the graph in the native library or not at all."""
+    if not native.available():
+        raise AssertionError("the native host library did not build or "
+                             f"load: {native.build_error()}")
+    print(f"native host library: {Path(native.library_path()).name} (g++, "
+          "from csrc/host/gki.cpp and walker.cpp)", flush=True)
+
+
+def device_busy_seconds(prof) -> float:
+    """Seconds the card was busy inside a torch.profiler run: the device
+    time of everything it ran."""
+    from torch.autograd import DeviceType
+
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+
+
+def streamed_find(dev, graph, cpaths, n_workers, mp_context, stats):
+    """find_kmers_parallel_device with the native walker required; on a
+    CUDA device under torch.profiler (device activity only), so that the
+    card's busy time inside the find can be read. Returns (FlatKmers,
+    wall seconds, busy seconds or None)."""
+    def find():
+        flat = find_kmers_parallel_device(
+            graph, K, n_workers=n_workers, critical_paths=cpaths,
+            stream_rows_target=STREAM_TARGET,
+            stream_tape_target=STREAM_TARGET, mp_context=mp_context,
+            device=dev, require_native=True, stats=stats)
+        sync(dev)
+        return flat
+
+    sync(dev)
+    t0 = time.perf_counter()
+    if dev.type != "cuda":
+        return find(), time.perf_counter() - t0, None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flat = find()
+    seconds = time.perf_counter() - t0
+    return flat, seconds, device_busy_seconds(prof) or None
+
+
+def sample_reference_reads(graph, n_reads, rng) -> np.ndarray:
+    """(n_reads, READ_LEN) int8 reads at uniform positions of the graph's
+    linear reference."""
+    refseq = graph.linear_ref_sequence()[2]
+    starts = rng.integers(0, len(refseq) - READ_LEN, n_reads)
+    return refseq[starts[:, None] + np.arange(READ_LEN)].astype(np.int8)
+
+
+def build_path(dev, card, args, n_workers=BUILD_WORKERS, mp_context="spawn",
+               modulo=REF_MODULO) -> dict:
+    """The build path at the requested scale, through the functions a user
+    calls: graph -> critical paths -> streamed find (rows left on the
+    device) -> index with frequencies -> packed table -> read mapping.
+    Returns its state."""
+    st = Stages(dev, card)
+    t0 = time.perf_counter()
+    graph, _ = synthetic.random_snp_graph(
+        args.build_bases, args.build_variants, seed=args.seed,
+        indel_fraction=0.1)
+    st.report("graph build (host)", time.perf_counter() - t0,
+              f", {args.build_bases} bases, {args.build_variants} variants, "
+              f"{graph.n_nodes()} nodes")
+    t0 = time.perf_counter()
+    cpaths = CriticalGraphPaths.from_graph(graph, K)
+    st.report("critical paths (host)", time.perf_counter() - t0,
+              f", {len(cpaths)} paths")
+
+    stats = {}
+    flat, t_find, busy = streamed_find(dev, graph, cpaths, n_workers,
+                                       mp_context, stats)
+    n_rows = len(flat)
+    idle = ("not measured" if busy is None else
+            f"{1 - busy / t_find:.6f} (busy {busy:.6f} s)")
+    st.report("streamed find (host walk + device finalize)", t_find,
+              f", {n_rows} rows, {n_rows / t_find:.1f} rows/s, "
+              f"{args.build_bases / t_find:.1f} bases/s, "
+              f"{stats['groups']} groups flushed in "
+              f"{stats['flush_seconds']:.6f} s of the pool loop, "
+              f"{n_workers} workers ({mp_context}), first chunk back after "
+              f"{stats['first_result_seconds']:.6f} s (worker start-up and "
+              f"one chunk's walk), device idle share {idle}")
+
+    index = st.run("index build (from_flat_kmers: layout + frequencies)",
+                   KmerIndex.from_flat_kmers, flat, modulo, device=dev)
+    del flat
+    tables = st.run("packed table build", index.device_index.packed)
+    if tables is None:
+        raise AssertionError("the packed records exceed the device's "
+                             "budget: map_kmers would not take K2")
+    print(f"built index: {n_rows} rows at modulo {modulo}, modulo2 "
+          f"{tables.modulo2}, records {tables.records.numel() * 4} bytes, "
+          f"max bucket {tables.max_sz}", flush=True)
+
+    n_nodes = graph.n_nodes()
+    reads = sample_reference_reads(graph, args.build_reads,
+                                   np.random.default_rng(args.seed + 1))
+
+    def map_reads():
+        tape = torch.from_numpy(reads.reshape(-1)).to(dev)
+        starts = torch.arange(len(reads), device=dev) * READ_LEN
+        lens = torch.full((len(reads),), READ_LEN, device=dev)
+        hashes, _ = encode.read_tape_hashes(tape, starts, lens,
+                                            tape.shape[0], K)
+        queries = DeviceReadKmers([hashes], K)
+        return queries, index.map_kmers(queries, n_nodes)
+
+    sync(dev)
+    t0 = time.perf_counter()
+    queries, counts = map_reads()
+    t_map = time.perf_counter() - t0
+    st.report("read mapping (hash + map_kmers)", t_map,
+              f", {len(queries)} query k-mers, "
+              f"{len(queries) / t_map:.1f} k-mers/s, "
+              f"{int(counts.sum()) / max(1, len(queries)):.4f} hits a query")
+    return dict(graph=graph, index=index, tables=tables, stats=stats,
+                n_rows=n_rows, n_nodes=n_nodes, queries=queries,
+                counts=counts)
+
+
+def check_build(dev, b, launches, gen) -> int:
+    """The build path's results: the row count against the spans' own
+    total, the node counts against join_counts, the path's launches, and
+    K1 against its twin on a tape of the largest group's length. Returns
+    K1's max abs difference (0)."""
+    stats = b["stats"]
+    if b["n_rows"] != stats["span_rows"] or b["n_rows"] == 0:
+        raise AssertionError(f"{b['n_rows']} rows, but the spans hold "
+                             f"{stats['span_rows']} (windows x nodes)")
+    index = b["index"]
+    queries = torch.cat(b["queries"].segments)
+    want = join_counts(index.kmers, index.nodes, queries, b["n_nodes"])
+    counts = torch.from_numpy(b["counts"]).to(dev)
+    if counts.shape != (b["n_nodes"],) or not torch.equal(counts, want):
+        raise AssertionError("the build path's node counts differ from the "
+                             "join")
+    hits = int(counts.sum())
+    if hits < queries.shape[0]:
+        raise AssertionError(f"{hits} hits for {queries.shape[0]} k-mers of "
+                             "reference reads: every one is in the graph")
+    require_launches(launches, BUILD_KERNELS, "build path")
+    if launches["sliding_hash"] < stats["groups"] + 1:
+        raise AssertionError("K1 was not launched once a span group")
+    n = max(stats["tape_bases"])
+    tape = torch.randint(0, 4, (n,), dtype=torch.int8, device=dev,
+                         generator=gen)
+    err = assert_equal(encode.sliding_hashes(tape, K),
+                       encode.sliding_hashes_plain(tape, K),
+                       f"K1 on a tape of {n} bases")
+    print(f"build path: {b['n_rows']} rows == the spans' windows x nodes; "
+          f"node counts == join ({hits} hits of {queries.shape[0]} read "
+          f"k-mers over {b['n_nodes']} nodes); K1 == plain (bit-exact) on a "
+          f"tape of {n} bases, the largest of {stats['groups']} groups",
+          flush=True)
+    return err
+
+
+def numpy_index_build(kmers, ref_offsets, modulo):
+    """(bucket starts, bucket sizes, frequencies of the rows in bucket
+    order) of an index over these rows, in numpy and by other means than
+    the port's: buckets by np.unique over the stably sorted bucket column,
+    a k-mer's frequency as its number of distinct (k-mer, ref offset)
+    pairs, counted through dense ids."""
+    order = np.argsort(kmers % np.uint64(modulo), kind="stable")
+    km, ro = kmers[order], ref_offsets[order]
+    buckets, first, size = np.unique((km % np.uint64(modulo)).astype(
+        np.int64), return_index=True, return_counts=True)
+    starts = np.zeros(modulo, dtype=np.int64)
+    sizes = np.zeros(modulo, dtype=np.int64)
+    starts[buckets], sizes[buckets] = first, size
+    kid = np.unique(km, return_inverse=True)[1].astype(np.int64)
+    offsets, rid = np.unique(ro, return_inverse=True)
+    pairs = np.unique(kid * len(offsets) + rid)
+    distinct = np.bincount(pairs // len(offsets), minlength=kid.max() + 1)
+    return starts, sizes, (distinct[kid] & 0xFFFF).astype(np.uint16)
+
+
+def check_build_small(dev, card, args, n_workers=BUILD_WORKERS,
+                      mp_context="spawn", modulo=CHECK_MODULO) -> None:
+    """On a graph of ``--check-bases`` bases from the same generator: the
+    four columns of find_kmers_parallel_device on the device against
+    find_kmers_parallel on the host (the native finalize_rows route), bit
+    for bit, and the index built from the device's rows against
+    numpy_index_build."""
+    st = Stages(dev, card)
+    graph, _ = synthetic.random_snp_graph(
+        args.check_bases, max(1, args.check_bases // 250),
+        seed=args.seed + 2, indel_fraction=0.1)
+    cpaths = CriticalGraphPaths.from_graph(graph, K)
+    t0 = time.perf_counter()
+    host = find_kmers_parallel(graph, K, n_workers, critical_paths=cpaths,
+                               mp_context=mp_context, require_native=True)
+    st.report("small graph: host find (native finalize_rows)",
+              time.perf_counter() - t0, f", {len(host)} rows")
+    stats = {}
+    # small stream targets, so that several groups are joined
+    t0 = time.perf_counter()
+    flat = find_kmers_parallel_device(
+        graph, K, n_workers=n_workers, critical_paths=cpaths,
+        stream_rows_target=max(1, len(host) // 5),
+        stream_tape_target=STREAM_TARGET, mp_context=mp_context, device=dev,
+        require_native=True, stats=stats)
+    sync(dev)
+    st.report("small graph: streamed find", time.perf_counter() - t0,
+              f", {len(flat)} rows in {stats['groups']} groups")
+    columns = {"hashes": (flat._hashes, host._hashes, np.uint64),
+               "nodes": (flat._nodes, host._nodes, np.uint32),
+               "ref_offsets": (flat._ref_offsets, host._ref_offsets,
+                               np.uint64),
+               "allele_frequencies": (flat._allele_frequencies,
+                                      host._allele_frequencies, np.float32)}
+    for name, (got, want, dtype) in columns.items():
+        got = got.cpu().numpy()
+        if got.itemsize != np.dtype(dtype).itemsize:
+            raise AssertionError(f"{name}: {got.dtype} on the device")
+        if want.dtype != dtype or not np.array_equal(got.view(dtype), want):
+            raise AssertionError(f"the device's {name} differ from the "
+                                 "host's")
+    index = KmerIndex.from_flat_kmers(flat, modulo, device=dev)
+    starts, sizes, freqs = numpy_index_build(host._hashes,
+                                             host._ref_offsets, modulo)
+    got = {"hashes_to_index": (index.hashes_to_index, starts),
+           "n_kmers": (index.n_kmers, sizes),
+           "frequencies": (index.frequencies, freqs)}
+    for name, (tensor, want) in got.items():
+        if not np.array_equal(tensor.cpu().numpy().astype(np.int64), want):
+            raise AssertionError(f"the built index's {name} differ from the "
+                                 "numpy build's")
+    print(f"small graph ({args.check_bases} bases, {graph.n_nodes()} nodes): "
+          f"the device's four columns == the host's (bit for bit) on "
+          f"{len(host)} rows in {stats['groups']} groups; the built index's "
+          f"hashes_to_index, n_kmers (modulo {modulo}) and frequencies "
+          f"(max {int(freqs.max())}) == a numpy build", flush=True)
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
 
 def kernel_entries(launches, hash_launches, lookup_launches, errs,
-                   timed) -> list:
+                   timed, build_launches=None) -> list:
     """The entries of the ``kernels`` line: every kernel with its source,
     the code it replaces, its launches on its own path, its error against
-    the twin and its measured and bound times."""
+    the twin and its measured and bound times. A kernel that the build
+    path launched too (``build_launches``) reports the sum of its two
+    paths' launches, and each path's count under ``launches_by_path``."""
     sources = {"sliding_hash": (K1_SOURCE, K1_REPLACES, launches),
                "packed_lookup": (K2_SOURCE, K2_REPLACES, launches),
                "sliding_pack_p16": (K3_SOURCE, K3_REPLACES, hash_launches),
@@ -1242,6 +1534,11 @@ def kernel_entries(launches, hash_launches, lookup_launches, errs,
                for name, (source, replaces, path_launches)
                in sources.items()]
     for entry in kernels:
+        on_build = (build_launches or {}).get(entry["name"], 0)
+        if on_build:
+            entry["launches_by_path"] = {"read_mapping": entry["launches"],
+                                         "build": on_build}
+            entry["launches"] += on_build
         missing = [key for key in KERNEL_KEYS if key not in entry]
         if missing:
             raise AssertionError(f"kernel {entry['name']} lacks {missing}")
@@ -1253,6 +1550,13 @@ def parse_args(argv):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--genome-bases", type=int, default=150_000_000)
     p.add_argument("--reads", type=int, default=1_000_000)
+    p.add_argument("--build-bases", type=int, default=150_000_000,
+                   help="reference bases of the build path's graph")
+    p.add_argument("--build-variants", type=int, default=600_000)
+    p.add_argument("--build-reads", type=int, default=100_000)
+    p.add_argument("--check-bases", type=int, default=3_000_000,
+                   help="bases of the small graph whose device rows are "
+                        "held against the host's")
     p.add_argument("--profile", metavar="PATH",
                    help="profile the CSR map_kmers and has_kmers calls as "
                         "well as the packed ones; write the operator "
@@ -1273,6 +1577,12 @@ def main(argv=None) -> int:
     path, seconds = _kernels.build()
     print(f"built {path.name} in {seconds:.3f} s", flush=True)
     _kernels.library()
+    # the host library too, before any stage that would time its build:
+    # the reads' parse and the build path's walk run in it
+    t0 = time.perf_counter()
+    require_native()
+    print(f"native host library ready in {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -1333,10 +1643,25 @@ def main(argv=None) -> int:
             raise AssertionError(f"a packed {name} call made the host wait "
                                  f"{syncs[name]} times over {n_seg} read "
                                  "segments")
-    del lk
+    del lk, state, probes
+    torch.cuda.empty_cache()
+
+    check_build_small(dev, card, args)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launch_counts()
+    built = build_path(dev, card, args)
+    build_launches = dict(_kernels.launch_counts)
+    print(f"build path launches {build_launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes [{card}]",
+          flush=True)
+    errs["sliding_hash"]["max_abs_err"] = max(
+        errs["sliding_hash"]["max_abs_err"],
+        check_build(dev, built, build_launches, gen))
+    del built
 
     kernels = kernel_entries(launches, hash_launches, lookup_launches, errs,
-                             timed)
+                             timed, build_launches)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

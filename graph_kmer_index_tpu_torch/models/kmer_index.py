@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..flat_kmers import is_tensor
 from ..ops.lookup import DeviceKmerIndex, as_device_tensor
 from ..read_kmers import DeviceReadKmers
 
@@ -143,15 +144,17 @@ class KmerIndex:
     @classmethod
     def from_rows(cls, kmers, nodes, ref_offsets, allele_frequencies,
                   modulo=DEFAULT_MODULO, *, device,
-                  skip_frequencies=False) -> "KmerIndex":
+                  skip_frequencies=False, dtypes=None) -> "KmerIndex":
         """Build the bucket layout from unsorted rows (numpy arrays or
-        tensors) on ``device``: the counterpart of
-        CollisionFreeKmerIndex.from_flat_kmers with arrays in place of a
-        FlatKmers (whose host layer is not ported)."""
+        tensors) on ``device``: CollisionFreeKmerIndex.from_flat_kmers
+        with arrays in place of a FlatKmers. ``dtypes`` names the numpy
+        dtype a column's query results take where it is not the column's
+        own (a tensor cannot say uint64)."""
         dev = resolve_device(device)
         dtypes = {"nodes": _np_dtype(nodes),
                   "ref_offsets": _np_dtype(ref_offsets),
-                  "allele_frequencies": _np_dtype(allele_frequencies)}
+                  "allele_frequencies": _np_dtype(allele_frequencies),
+                  **(dtypes or {})}
         km = as_device_tensor(kmers, torch.int64, dev)
         cols = [km, as_device_tensor(nodes, torch.int64, dev),
                 as_device_tensor(ref_offsets, torch.int64, dev),
@@ -162,6 +165,49 @@ class KmerIndex:
                     hashes_to_index=starts, n_kmers=sizes, dtypes=dtypes)
         index.set_frequencies(skip_frequencies)
         return index
+
+    @classmethod
+    def from_flat_kmers(cls, flat_kmers, modulo=DEFAULT_MODULO,
+                        skip_frequencies=False, skip_singletons=False, *,
+                        device) -> "KmerIndex":
+        """CollisionFreeKmerIndex.from_flat_kmers on ``device``. A
+        FlatKmers whose columns are tensors on ``device`` (a device
+        finalize's, parallel.host_pool.find_kmers_parallel_device) is
+        built where it lies, with no trip through the host; numpy columns
+        are uploaded once. ``skip_singletons`` drops every hash's first
+        row and adds one to every frequency (in 16 bits), as there."""
+        if skip_singletons:
+            flat_kmers = flat_kmers.get_new_without_singletons()
+        # a tensor holds the uint64 ref offsets' bits as int64
+        dtypes = ({"ref_offsets": np.dtype(np.uint64)}
+                  if is_tensor(flat_kmers._ref_offsets) else None)
+        index = cls.from_rows(
+            flat_kmers._hashes, flat_kmers._nodes, flat_kmers._ref_offsets,
+            flat_kmers._allele_frequencies, modulo, device=device,
+            skip_frequencies=skip_frequencies, dtypes=dtypes)
+        if skip_singletons:
+            index._invalidate_query_caches()
+            index.frequencies = (index.frequencies + 1) & 0xFFFF
+        return index
+
+    def _file_column(self, name: str):
+        """A column as the npz of CollisionFreeKmerIndex.to_file holds it:
+        k-mers uint64, bucket sizes uint32, every other column in its
+        dtype."""
+        col = getattr(self, name)
+        if not isinstance(col, torch.Tensor):
+            return col
+        if name == "n_kmers":
+            return _to_numpy(col, np.uint32)
+        a = _to_numpy(col, self.dtypes[name])
+        return a.view(np.uint64) if name == "kmers" else a
+
+    def to_file(self, file_name) -> None:
+        """The npz that CollisionFreeKmerIndex.from_file (and
+        :meth:`from_file`) reads."""
+        np.savez(file_name, modulo=self.modulo,
+                 **{name: self._file_column(name)
+                    for name in ("kmers", "nodes") + _COLUMNS})
 
     @classmethod
     def from_file(cls, path, device) -> "KmerIndex":

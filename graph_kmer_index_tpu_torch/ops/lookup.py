@@ -551,10 +551,16 @@ class DeviceKmerIndex:
     def _bucket_tables_cheap(self) -> bool:
         """True when get_batched should take its ranges from the bucket
         tables (two gathers per query): this view already holds them on
-        the device, or they fit BUCKET_TABLE_BYTE_BUDGET. (The JAX package
-        also takes tables that its device build left in HBM; the port's
-        build leaves tensors that this view reads like any other column.)"""
+        the device, the index's build left them there as tensors
+        (KmerIndex.from_rows / from_flat_kmers), or they fit
+        BUCKET_TABLE_BYTE_BUDGET and are cheap to move."""
+        def on_device(col):
+            return (isinstance(col, torch.Tensor)
+                    and col.device == self.device)
+
         return ("starts_tbl" in self._cache
+                or (on_device(self._host.hashes_to_index)
+                    and on_device(self._host.n_kmers))
                 or self.modulo * 12 <= self.BUCKET_TABLE_BYTE_BUDGET)
 
     @property

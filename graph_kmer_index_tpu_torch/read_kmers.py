@@ -2,7 +2,8 @@
 device path (``hash_fasta_file(keep_on_device=True)``).
 
 The file is parsed on the host in whole-record blocks into a 2-bit read
-tape; each tape segment is uploaded once and hashed on the device with
+tape (by the native library's C++ parser where it is available, else in
+Python: the same arrays); each tape segment is uploaded once and hashed on the device with
 cross-read windows compacted out (ops.encode.read_tape_hashes). The read
 k-mers stay on the device for the lookup.
 """
@@ -13,6 +14,7 @@ import time
 import numpy as np
 import torch
 
+from . import native
 from .device import resolve_device
 from .hashing import ASCII_TO_2BIT
 from .ops.encode import read_tape_hashes, revcomp_hashes
@@ -51,7 +53,18 @@ def encode_block(text: bytes):
     """(int8 2-bit tape, int64 starts, int64 lens) of one text block: one
     read per sequence line (a multi-line FASTA record is several reads),
     header lines ('>'/'@') and FASTQ '+'/quality lines skipped, blank
-    lines ignored, whitespace (CRLF included) stripped."""
+    lines ignored, whitespace (CRLF included) stripped. Parsed by the
+    native library (``native.fasta_encode``) when it is available, else
+    by :func:`encode_block_plain`."""
+    encoded = native.fasta_encode(text)
+    if encoded is not None:
+        return encoded
+    return encode_block_plain(text)
+
+
+def encode_block_plain(text: bytes):
+    """:func:`encode_block` in Python: the route of a machine without a
+    compiler, and the native parser's twin in the tests."""
     lines = []
     skip_quality = False
     for line in text.decode().splitlines():
@@ -113,7 +126,8 @@ def hash_fasta_file(path, k: int, *, device,
     """All window hashes of all reads in a FASTA/FASTQ file, on
     ``device``: every forward k-mer in read order, then (with
     ``include_reverse_complements``) every reverse complement in the same
-    order. With ``stage_seconds``, host-clock seconds of the parse,
+    order. With ``stage_seconds``, host-clock seconds of the read (the
+    file cut into whole-record blocks), parse (a block's 2-bit encoding),
     upload and hash stages are added to it (each stage ends in a device
     synchronise)."""
     dev = resolve_device(device)
@@ -131,6 +145,7 @@ def hash_fasta_file(path, k: int, *, device,
     blocks = _iter_record_blocks(path, block_bytes or BLOCK_BYTES)
     t = time.perf_counter()
     for text in blocks:
+        t = mark("read", t)
         flat, starts, lens = encode_block(text)
         t = mark("parse", t)
         if len(flat) == 0:

@@ -1,9 +1,14 @@
-"""Chip-scale synthetic data for the read-mapping path, all from one seed:
-a random genome with planted repeats, and reads sampled from it with
-substitutions, written as FASTA."""
+"""Chip-scale synthetic data, all from one seed: a random genome with
+planted repeats and reads sampled from it with substitutions, written as
+FASTA (the read-mapping path); and the JAX package's synthetic SNP/indel
+pangenome graph (``random_snp_graph``: the same rng calls in the same
+order, so a seed gives the same graph in both packages), which the build
+path indexes."""
 from __future__ import annotations
 
 import numpy as np
+
+from ..graph import Graph, VariantToNodes
 
 _ASCII = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -73,3 +78,64 @@ def write_fasta(path, reads: np.ndarray) -> None:
     lines[:, len(header):-1] = _ASCII[reads]
     lines[:, -1] = ord("\n")
     lines.tofile(path)
+
+
+def random_snp_graph(n_ref_bases: int = 100000, n_variants: int = 1000,
+                     seed: int = 0, indel_fraction: float = 0.0):
+    """(Graph, VariantToNodes): evenly spaced bi-allelic variants.
+
+    Each variant: ref segment ... -> (ref_allele | alt_allele) -> ...
+    Indels (when ``indel_fraction``>0) use an empty ref-allele node
+    (the dummy-node case, reference kmer_finder.py:261-266).
+    """
+    rng = np.random.default_rng(seed)
+    bases = "acgt"
+    spacing = max(2, n_ref_bases // max(1, n_variants))
+
+    node_seqs = {}
+    edges = {}
+    linear_ref = []
+    ref_nodes_v, var_nodes_v = [], []
+
+    nid = 1
+    prev_tails = []
+
+    def link(frm_list, to):
+        for f in frm_list:
+            edges.setdefault(f, []).append(to)
+
+    pos = 0
+    while pos < n_ref_bases:
+        seg_len = min(spacing, n_ref_bases - pos)
+        seg = "".join(rng.choice(list(bases), size=seg_len))
+        node_seqs[nid] = seg
+        link(prev_tails, nid)
+        linear_ref.append(nid)
+        seg_node = nid
+        nid += 1
+        pos += seg_len
+        if pos >= n_ref_bases or len(ref_nodes_v) >= n_variants:
+            prev_tails = [seg_node]
+            continue
+        is_indel = rng.random() < indel_fraction
+        if is_indel:
+            ref_allele, var_allele = nid, nid + 1
+            node_seqs[ref_allele] = ""
+            node_seqs[var_allele] = "".join(
+                rng.choice(list(bases), size=int(rng.integers(1, 5))))
+        else:
+            ref_allele, var_allele = nid, nid + 1
+            b = int(rng.integers(0, 4))
+            node_seqs[ref_allele] = bases[b]
+            node_seqs[var_allele] = bases[(b + 1 + int(rng.integers(0, 3))) % 4]
+        nid += 2
+        edges[seg_node] = [ref_allele, var_allele]
+        linear_ref.append(ref_allele)
+        ref_nodes_v.append(ref_allele)
+        var_nodes_v.append(var_allele)
+        prev_tails = [ref_allele, var_allele]
+
+    graph = Graph.from_dicts(node_seqs, edges, linear_ref)
+    v2n = VariantToNodes(np.array(ref_nodes_v, dtype=np.int32),
+                         np.array(var_nodes_v, dtype=np.int32))
+    return graph, v2n

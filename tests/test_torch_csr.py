@@ -213,6 +213,13 @@ def test_csr_map_and_has_match_jax(modulo):
     assert np.array_equal(packed.has_kmers(q), want_has)
 
 
+def _tables_to_host(index):
+    """The bucket tables as numpy arrays, as KmerIndex.from_file leaves
+    them."""
+    index.hashes_to_index = index.hashes_to_index.numpy()
+    index.n_kmers = index.n_kmers.numpy()
+
+
 # -- get_batched ------------------------------------------------------------------------
 
 @pytest.mark.parametrize("caps", sorted(CAPS))
@@ -223,8 +230,17 @@ def test_get_batched_matches_jax(modulo, route, caps):
     q = _queries(modulo)
     hit_cap, freq_cap = CAPS[caps]
     jax_dev = JaxDevice.from_host_index(jax_index)
-    port_dev = port_lookup.DeviceKmerIndex(_port(modulo))
+    port = _port(modulo)
+    port_dev = port_lookup.DeviceKmerIndex(port)
+    # tables that the build left on the index's device are taken whatever
+    # the budget says, as in the JAX package
+    port_dev.BUCKET_TABLE_BYTE_BUDGET = 0
+    assert port_dev._bucket_tables_cheap()
+    port_dev.BUCKET_TABLE_BYTE_BUDGET = (
+        port_lookup.DeviceKmerIndex.BUCKET_TABLE_BYTE_BUDGET)
     if route == "searchsorted":
+        # host tables (an index read from a file) over the budget
+        _tables_to_host(port)
         jax_dev.BUCKET_TABLE_BYTE_BUDGET = 0
         port_dev.BUCKET_TABLE_BYTE_BUDGET = 0
     assert jax_dev._bucket_tables_cheap() == (route == "tables")
@@ -261,7 +277,9 @@ def test_get_batched_on_an_empty_index(route):
                                np.zeros(0, np.uint64),
                                np.zeros(0, np.float32), 101, device="cpu")
     if route == "searchsorted":
+        _tables_to_host(port)
         port.device_index.BUCKET_TABLE_BYTE_BUDGET = 0
+        assert not port.device_index._bucket_tables_cheap()
     q = np.array([0, 5, 4 ** 31 - 1], dtype=np.uint64)
     assert port.get_batched(q).shape == (5, 0)
     assert not port.has_kmers(q).any()

@@ -54,15 +54,36 @@ idx = torch.arange(1024, dtype=torch.int32) % 64
 assert primitives.gather_loop(idx, torch.ones((64, 2), dtype=torch.int32),
                               256).tolist() == [256] * 4
 assert int(primitives.rmw_loop(idx, 64, 2)[:, 0].sum()) == 1024
+# the build side: graph -> critical paths -> pooled find with the device
+# finalize -> index -> read counts
+from graph_kmer_index_tpu_torch import CriticalGraphPaths, native
+from graph_kmer_index_tpu_torch.hashing import sliding_window_hashes
+from graph_kmer_index_tpu_torch.parallel.host_pool import (
+    find_kmers_parallel, find_kmers_parallel_device)
+from graph_kmer_index_tpu_torch.utils.synthetic import random_snp_graph
+assert native.available(), native.build_error()
+graph, _ = random_snp_graph(2000, 30, seed=1, indel_fraction=0.2)
+cpaths = CriticalGraphPaths.from_graph(graph, 11)
+flat = find_kmers_parallel_device(graph, 11, n_workers=2, mp_context="spawn",
+                                  critical_paths=cpaths, device="cpu",
+                                  stream_rows_target=1000,
+                                  require_native=True)
+host = find_kmers_parallel(graph, 11, n_workers=1, critical_paths=cpaths)
+assert np.array_equal(flat._hashes.numpy().view(np.uint64), host._hashes)
+built = KmerIndex.from_flat_kmers(flat, modulo=1009, device="cpu")
+ref = sliding_window_hashes(graph.linear_ref_sequence()[2], 11)
+assert built.has_kmers(ref).all()
+assert built.map_kmers(ref, graph.n_nodes()).sum() >= len(ref)
 print("ok")
 """
 
 
 def test_port_lookup_runs_without_jax():
-    """The CSR path, get_batched, the get API and the probes' twins run
+    """The CSR path, get_batched, the get API, the probes' twins and the
+    build of an index from a graph (native walker, spawned workers) run
     with jax and the JAX package unimportable."""
     proc = subprocess.run([sys.executable, "-c", _RUN], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
 

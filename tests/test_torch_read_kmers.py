@@ -58,7 +58,7 @@ def test_segments_cut_at_read_boundaries(tmp_path, monkeypatch):
                            include_reverse_complements=True,
                            stage_seconds=stages)
     assert len(port.segments) > 2
-    assert set(stages) == {"parse", "upload", "hash"}
+    assert set(stages) == {"read", "parse", "upload", "hash"}
     assert np.array_equal(port.to_numpy(), _jax_kmers(path, k, True, None))
 
 

@@ -163,6 +163,98 @@ def test_smoke_lookup_phase_on_cpu(tmp_path, capsys, monkeypatch):
         cs.check_lookup(dev, state, lk, 500, gen)
 
 
+def test_smoke_build_phase_on_cpu(capsys, monkeypatch):
+    """The build phase at a tiny size: the small graph's device rows
+    against the host's and the index against the numpy build, then graph
+    -> critical paths -> streamed find -> index -> packed table -> read
+    counts, and its checks."""
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    args = cs.parse_args(["--build-bases", "120000", "--build-variants",
+                          "480", "--build-reads", "300", "--check-bases",
+                          "40000"])
+    assert cs.parse_args([]).build_bases == 150_000_000
+    assert cs.parse_args([]).build_variants == 600_000
+    cs.require_native()
+    cs.check_build_small(dev, "CPU", args, n_workers=2, mp_context=None,
+                         modulo=10_007)
+    monkeypatch.setattr(cs, "STREAM_TARGET", 50_000)
+    _kernels.reset_launch_counts()
+    built = cs.build_path(dev, "CPU", args, n_workers=2, mp_context=None,
+                          modulo=100_003)
+    stats = built["stats"]
+    assert stats["groups"] >= 3 and built["n_rows"] == stats["span_rows"]
+    assert built["counts"].shape == (built["n_nodes"],)
+    assert built["index"].modulo == 100_003
+    # a CPU tensor takes the twins: nothing was launched, and the check
+    # says so
+    with pytest.raises(AssertionError, match="sliding_hash was not launched "
+                       "by the build path"):
+        cs.check_build(dev, built, dict(_kernels.launch_counts), gen)
+    launches = dict.fromkeys(_kernels.launch_counts, 0)
+    launches.update(sliding_hash=stats["groups"] + 1, packed_lookup=1)
+    assert cs.check_build(dev, built, launches, gen) == 0
+    launches["sliding_hash"] = stats["groups"]
+    with pytest.raises(AssertionError, match="once a span group"):
+        cs.check_build(dev, built, launches, gen)
+    launches["sliding_hash"] += 1
+    built["counts"][5] += 1
+    with pytest.raises(AssertionError, match="differ from the join"):
+        cs.check_build(dev, built, launches, gen)
+    built["counts"][5] -= 1
+    built["n_rows"] += 1
+    with pytest.raises(AssertionError, match="but the spans hold"):
+        cs.check_build(dev, built, launches, gen)
+    out = capsys.readouterr().out
+    assert "the device's four columns == the host's (bit for bit)" in out
+    assert "== a numpy build" in out
+    for stage in ("graph build (host)", "critical paths (host)",
+                  "streamed find (host walk + device finalize)",
+                  "index build (from_flat_kmers: layout + frequencies)",
+                  "packed table build", "read mapping (hash + map_kmers)"):
+        assert f"stage {stage}: " in out
+    assert "groups flushed" in out and "device idle share not measured" in out
+    assert "node counts == join" in out
+
+
+def test_smoke_numpy_index_build_is_the_jax_packages():
+    """The independent numpy build that the smoke holds the port's index
+    against agrees with the JAX package's host build."""
+    from graph_kmer_index_tpu import CollisionFreeKmerIndex, FlatKmers
+    cs = _smoke()
+    rng = np.random.default_rng(3)
+    kmers = rng.integers(0, 900, 4000).astype(np.uint64)
+    offsets = rng.integers(0, 50, 4000).astype(np.uint64)
+    ref = CollisionFreeKmerIndex.from_flat_kmers(
+        FlatKmers(kmers, np.ones(4000, np.uint32), offsets,
+                  np.ones(4000, np.single)), modulo=499, use_device=False)
+    starts, sizes, freqs = cs.numpy_index_build(kmers, offsets, 499)
+    assert np.array_equal(starts, ref._hashes_to_index)
+    assert np.array_equal(sizes, ref._n_kmers)
+    assert np.array_equal(freqs, ref._frequencies) and freqs.max() > 3
+
+
+def test_smoke_kernel_entries_add_the_build_paths_launches():
+    cs = _smoke()
+    launches = dict.fromkeys(_kernels.launch_counts, 2)
+    errs = {name: {"max_abs_err": 0} for name in launches}
+    timed = {name: {"ms": 1.0, "plain_ms": 2.0, "library_ms": None,
+                    **cs.bound(nbytes=1e6)} for name in launches}
+    build = dict.fromkeys(_kernels.launch_counts, 0)
+    build.update(sliding_hash=12, packed_lookup=1)
+    by_name = {e["name"]: e for e in cs.kernel_entries(
+        launches, launches, launches, errs, timed, build)}
+    assert by_name["sliding_hash"]["launches"] == 14
+    assert by_name["sliding_hash"]["launches_by_path"] == {
+        "read_mapping": 2, "build": 12}
+    assert by_name["packed_lookup"]["launches"] == 3
+    assert by_name["stream_copy"]["launches"] == 2
+    assert "launches_by_path" not in by_name["stream_copy"]
+    assert set(cs.BUILD_KERNELS) <= set(_kernels.launch_counts)
+
+
 def test_smoke_probe_edge_cases_and_timers_on_cpu(capsys):
     """The index sets that the designs of K6 and K7 make risky, and the two
     timers as far as a machine without a card can run them."""
