@@ -111,6 +111,33 @@
    share inside it by torch.profiler's device time, index build, packed
    table, read mapping) and the path's peak device memory.
 
+12. The signature path: what KAGE ships (its launches counted from 0 as
+   well). The build path's graph is written out as a reference sequence
+   and ``--build-variants`` VcfVariant records (90% SNPs, 10% insertions)
+   -> build_graph_from_vcf, which must give the build path's graph again
+   node for node, so that the build path's index (every k-mer of the
+   graph, with frequencies) is this graph's scoring index -> the
+   SnpKmerFinder sweep of the linear reference at the CLI's defaults
+   (k = 31, spacing 31), whose tape K1 hashes -> batched signature
+   selection (UniqueVariantKmersFinder.find_unique_kmers_batched, scored
+   by KmerIndex.get_frequencies on the card) -> the signature KmerIndex
+   at modulo 200,000,033 -> ReverseKmerIndex, ReferenceKmerIndex (of the
+   sweep's rows) and VariantNodesIndex -> IndexBundle.to_file ->
+   IndexBundle.from_file on the card -> ``--build-reads`` reference reads
+   from a FASTA file, both strands, hashed by K1 and mapped through K2
+   against the index read from the bundle. Checks, each raising: the two
+   graphs are equal; K1 ran inside the sweep and equals its twin on the
+   sweep's tape; the sweep's rows hold numpy's hash of the reference
+   window at 10,000 sampled positions; get_frequencies on the card
+   equals the native library's answer on 100,000 candidate hashes and
+   misses; the batched selection equals the per-variant search on the
+   first 2,000 variants, column for column; every variant with nodes has
+   k-mers for both nodes or is counted as failed; no node is selected at
+   two positions; the index read back from the bundle equals the one
+   written, column by column, and so do the other entries; K2 ran inside
+   the final mapping and its node counts equal an independent join on
+   the card. Prints a stage line each and the phase's peak device memory.
+
 Any failed check raises before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
@@ -130,7 +157,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from graph_kmer_index_tpu_torch import (  # noqa: E402
-    CriticalGraphPaths, DeviceReadKmers, KmerIndex, hash_fasta_file, native)
+    CriticalGraphPaths, DeviceReadKmers, IndexBundle, KmerIndex,
+    ReferenceKmerIndex, ReverseKmerIndex, SnpKmerFinder,
+    UniqueVariantKmersFinder, VariantNodesIndex, VcfVariants,
+    build_graph_from_vcf, hash_fasta_file, native)
 from graph_kmer_index_tpu_torch.hashing import (  # noqa: E402
     kmer_hashes_to_reverse_complement_hash, sliding_window_hashes)
 from graph_kmer_index_tpu_torch.ops import _kernels  # noqa: E402
@@ -161,6 +191,23 @@ HASHING_KERNELS = ("sliding_pack_p16", "sliding_pack_p8", "stream_copy",
                    "stream_sum")
 LOOKUP_KERNELS = ("gather_loop", "rmw_loop", "bcast_cmp")
 BUILD_KERNELS = ("sliding_hash", "packed_lookup")
+SIGNATURE_KERNELS = ("sliding_hash", "packed_lookup")
+# the signature path: the modulo of the signature index (the CLI's
+# default for an index over an index's k-mers, create_counter_index), the
+# sweep's spacing and caps (the CLI's defaults for ``make``), the
+# selection's variant-node cap (the CLI's default), and the sizes of the
+# samples its checks draw
+SIGNATURE_MODULO = 200_000_033
+SWEEP_SPACING = 31
+SWEEP_CAPS = dict(max_kmers_same_position=100000, max_frequency=10000000,
+                  max_variant_nodes=100000)
+SELECT_MAX_VARIANT_NODES = 6
+SWEEP_SAMPLE = 10_000
+FREQUENCY_SAMPLE = 100_000
+EXACT_VARIANTS = 2_000
+GRAPH_ARRAYS = ("sequence", "node_sizes", "seq_start", "edge_targets",
+                "edge_index", "linear_ref_mask", "node_to_ref_offset",
+                "allele_frequencies")
 # the build path: bench_chromosome.py's worker count and stream targets,
 # and the modulo of the small graph's index, which a numpy build repeats
 BUILD_WORKERS = 4
@@ -1329,7 +1376,7 @@ def build_path(dev, card, args, n_workers=BUILD_WORKERS, mp_context="spawn",
     Returns its state."""
     st = Stages(dev, card)
     t0 = time.perf_counter()
-    graph, _ = synthetic.random_snp_graph(
+    graph, variant_to_nodes = synthetic.random_snp_graph(
         args.build_bases, args.build_variants, seed=args.seed,
         indel_fraction=0.1)
     st.report("graph build (host)", time.perf_counter() - t0,
@@ -1387,7 +1434,8 @@ def build_path(dev, card, args, n_workers=BUILD_WORKERS, mp_context="spawn",
               f", {len(queries)} query k-mers, "
               f"{len(queries) / t_map:.1f} k-mers/s, "
               f"{int(counts.sum()) / max(1, len(queries)):.4f} hits a query")
-    return dict(graph=graph, index=index, tables=tables, stats=stats,
+    return dict(graph=graph, variant_to_nodes=variant_to_nodes, index=index,
+                tables=tables, stats=stats,
                 n_rows=n_rows, n_nodes=n_nodes, queries=queries,
                 counts=counts)
 
@@ -1507,18 +1555,303 @@ def check_build_small(dev, card, args, n_workers=BUILD_WORKERS,
           f"(max {int(freqs.max())}) == a numpy build", flush=True)
 
 
+def profiled(dev, fn):
+    """(fn(), wall seconds, seconds the card was busy inside it or None):
+    on a CUDA device ``fn`` runs under torch.profiler (device activity
+    only)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    if dev.type != "cuda":
+        out = fn()
+        return out, time.perf_counter() - t0, None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync(dev)
+    return out, time.perf_counter() - t0, device_busy_seconds(prof) or None
+
+
+def columns_of(flat) -> dict:
+    return {name: np.asarray(getattr(flat, "_" + name))
+            for name in ("hashes", "nodes", "ref_offsets",
+                         "allele_frequencies")}
+
+
+def assert_columns_equal(got: dict, want: dict, what: str) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: columns {sorted(got)} != "
+                             f"{sorted(want)}")
+    for name, a in want.items():
+        b = got[name]
+        if np.ndim(a) == 0 or np.ndim(b) == 0:
+            equal = np.ndim(a) == np.ndim(b) and a == b
+        else:
+            equal = (np.asarray(a).dtype == np.asarray(b).dtype
+                     and np.array_equal(a, b))
+        if not equal:
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def signature_path(dev, card, args, built, workdir,
+                   modulo=SIGNATURE_MODULO) -> dict:
+    """The signature path over the build path's graph and index, through
+    the classes a user calls: reference + variants -> graph -> sweep ->
+    batched selection -> signature index -> the other indexes -> bundle on
+    disk and back -> read counts. Returns its state."""
+    st = Stages(dev, card)
+    scoring = built["index"]
+    t0 = time.perf_counter()
+    reference, variants = synthetic.reference_and_variants(
+        built["graph"], built["variant_to_nodes"])
+    st.report("reference and variants (host, set-up)",
+              time.perf_counter() - t0,
+              f", {len(reference)} bases, {len(variants)} variants")
+    t0 = time.perf_counter()
+    graph, v2n = build_graph_from_vcf({"1": reference}, variants)
+    del reference
+    st.report("graph from variants (build_graph_from_vcf, host)",
+              time.perf_counter() - t0, f", {graph.n_nodes()} nodes")
+
+    before = _kernels.launch_counts["sliding_hash"]
+    finder = SnpKmerFinder(graph, k=K, spacing=SWEEP_SPACING, device=dev,
+                           **SWEEP_CAPS)
+    swept, t_sweep, busy = profiled(dev, finder.find_kmers)
+    sweep_launches = _kernels.launch_counts["sliding_hash"] - before
+    st.report("sweep (SnpKmerFinder.find_kmers)", t_sweep,
+              f", {graph.linear_ref_length() // SWEEP_SPACING} positions, "
+              f"{len(swept)} rows, {sweep_launches} K1 launch(es), device "
+              "time inside it "
+              + ("not measured" if busy is None else f"{busy:.6f} s"))
+
+    selector = UniqueVariantKmersFinder(
+        graph, v2n, variants, k=K,
+        max_variant_nodes=SELECT_MAX_VARIANT_NODES,
+        kmer_index_with_frequencies=scoring)
+    signatures, t_select, busy = profiled(
+        dev, selector.find_unique_kmers_batched)
+    st.report("batched signature selection", t_select,
+              f", {len(variants) / t_select:.1f} variants/s, "
+              f"{len(signatures)} rows, n_batched_variants "
+              f"{selector.n_batched_variants}, n_fallback_variants "
+              f"{selector.n_fallback_variants}, n_zero_node_variants "
+              f"{selector.n_zero_node_variants}, n_failed_variants "
+              f"{selector.n_failed_variants}, device time inside it "
+              + ("not measured" if busy is None else f"{busy:.6f} s"))
+
+    index = st.run("signature index build (from_flat_kmers)",
+                   KmerIndex.from_flat_kmers, signatures, modulo,
+                   device=dev)
+
+    def other_indexes():
+        return {"ReverseKmerIndex": ReverseKmerIndex.from_flat_kmers(
+                    signatures),
+                "ReferenceKmerIndex": ReferenceKmerIndex.from_flat_kmers(
+                    swept),
+                "VariantNodesIndex": VariantNodesIndex.from_graph(graph)}
+
+    others = st.run("reverse, reference and variant-nodes indexes (host)",
+                    other_indexes)
+    bundle = IndexBundle({"KmerIndex": index, "VariantToNodes": v2n,
+                          **others})
+    bundle_path = Path(st.run("bundle write (IndexBundle.to_file)",
+                              bundle.to_file, Path(workdir) / "bundle"))
+    n_bytes = bundle_path.stat().st_size
+    loaded = st.run("bundle read (IndexBundle.from_file)",
+                    IndexBundle.from_file, bundle_path, device=dev)
+    print(f"bundle: {n_bytes} bytes on disk, entries "
+          f"{sorted(loaded.indexes)}", flush=True)
+
+    reads = sample_reference_reads(graph, args.build_reads,
+                                   np.random.default_rng(args.seed + 3))
+    reads_path = Path(workdir) / "signature_reads.fa"
+    synthetic.write_fasta(reads_path, reads)
+    served = loaded["KmerIndex"]
+    n_nodes = graph.n_nodes()
+    before = _kernels.launch_counts["packed_lookup"]
+
+    def map_reads():
+        kmers = hash_fasta_file(reads_path, K, device=dev,
+                                include_reverse_complements=True)
+        return kmers, served.map_kmers(kmers, n_nodes)
+
+    sync(dev)
+    t0 = time.perf_counter()
+    queries, counts = map_reads()
+    t_map = time.perf_counter() - t0
+    map_launches = _kernels.launch_counts["packed_lookup"] - before
+    st.report("reads -> counts (hash_fasta_file + map_kmers on the bundle's "
+              "index)", t_map,
+              f", {len(queries)} query k-mers, {int(counts.sum())} hits, "
+              f"{map_launches} K2 launch(es)")
+    return dict(graph=graph, v2n=v2n, variants=variants, swept=swept,
+                selector=selector, signatures=signatures, index=index,
+                bundle=bundle, loaded=loaded, queries=queries, counts=counts,
+                n_nodes=n_nodes, scoring=scoring,
+                sweep_launches=sweep_launches, map_launches=map_launches)
+
+
+def check_signature(dev, card, built, sig, launches, n_sweep_sample,
+                    n_frequency_sample, n_exact, rng) -> int:
+    """The signature path's results, each check raising. Returns K1's max
+    abs difference against its twin on the sweep's tape (0)."""
+    st = Stages(dev, card)
+    graph = sig["graph"]
+    for name in GRAPH_ARRAYS:
+        if not np.array_equal(getattr(graph, name),
+                              getattr(built["graph"], name)):
+            raise AssertionError(f"the graph from the variants differs from "
+                                 f"the build path's in {name}")
+    require_launches(launches, SIGNATURE_KERNELS, "signature path")
+    if sig["sweep_launches"] < 1:
+        raise AssertionError("K1 was not launched inside "
+                             "SnpKmerFinder.find_kmers")
+    if sig["map_launches"] < 1:
+        raise AssertionError("K2 was not launched inside the final mapping")
+
+    refseq = graph.linear_ref_sequence()[2]
+    tape = torch.from_numpy(refseq.astype(np.int8)).to(dev)
+    err = assert_equal(encode.sliding_hashes(tape, K),
+                       encode.sliding_hashes_plain(tape, K),
+                       f"K1 on the sweep's tape of {len(refseq)} bases")
+    del tape
+
+    # the sweep's rows come in position order; at every swept position one
+    # of them is the reference window itself
+    swept = columns_of(sig["swept"])
+    n_positions = (len(refseq) - K) // SWEEP_SPACING
+    sample = rng.integers(0, n_positions, n_sweep_sample) * SWEEP_SPACING
+    windows = refseq[sample[:, None] + np.arange(K)].astype(np.uint64)
+    want = (windows << (2 * np.arange(K, dtype=np.uint64))).sum(
+        axis=1, dtype=np.uint64)
+    if not np.array_equal(want[:16], np.array(
+            [sliding_window_hashes(w, K)[0] for w in windows[:16]])):
+        raise AssertionError("the sample's window hashes are not numpy's")
+    offsets = swept["ref_offsets"]
+    if np.any(offsets[1:] < offsets[:-1]):
+        raise AssertionError("the sweep's rows are not in position order")
+    lo = np.searchsorted(offsets, sample.astype(offsets.dtype), "left")
+    hi = np.searchsorted(offsets, sample.astype(offsets.dtype), "right")
+    for a, b, h in zip(lo, hi, want):
+        if h not in swept["hashes"][a:b]:
+            raise AssertionError("a swept position lacks the hash of its "
+                                 "reference window")
+
+    # the scoring route of the selection against the host library's
+    scoring = sig["scoring"]
+    signatures = columns_of(sig["signatures"])
+    n_half = n_frequency_sample // 2
+    picked = rng.integers(0, len(signatures["hashes"]), n_half)
+    q = np.concatenate([
+        signatures["hashes"][picked],
+        rng.integers(0, 1 << 62, n_frequency_sample - n_half,
+                     dtype=np.uint64)])
+    on_card = st.run(f"get_frequencies on the card, {len(q)} queries",
+                     scoring.get_frequencies, q, backend="device")
+    on_host = st.run("get_frequencies by the native library (the index "
+                     "copied to the host once)",
+                     scoring.get_frequencies, q, backend="native")
+    if on_card.dtype != np.int64 or not np.array_equal(on_card, on_host):
+        raise AssertionError("get_frequencies on the card differs from the "
+                             "native library's")
+    if not (on_card[:n_half] >= 1).all():
+        raise AssertionError("a signature k-mer is missing from the scoring "
+                             "index")
+    scoring._invalidate_query_caches()  # frees the host copy
+
+    head = VcfVariants(sig["variants"].variants[:n_exact])
+
+    def select(method):
+        finder = UniqueVariantKmersFinder(
+            graph, sig["v2n"], head, k=K,
+            max_variant_nodes=SELECT_MAX_VARIANT_NODES,
+            kmer_index_with_frequencies=scoring)
+        return columns_of(getattr(finder, method)())
+
+    batched = select("find_unique_kmers_batched")
+    exact = st.run(f"per-variant search of {len(head)} variants",
+                   select, "find_unique_kmers")
+    assert_columns_equal(batched, exact, "batched selection against the "
+                         "per-variant search")
+
+    # both nodes of every variant, each at one position
+    ref_nodes = np.asarray(sig["v2n"].ref_nodes).astype(np.int64)
+    var_nodes = np.asarray(sig["v2n"].var_nodes).astype(np.int64)
+    has_nodes = (ref_nodes > 0) & (var_nodes > 0)
+    selected = np.zeros(sig["n_nodes"] + 1, dtype=bool)
+    selected[signatures["nodes"]] = True
+    incomplete = int((has_nodes & ~(selected[ref_nodes]
+                                    & selected[var_nodes])).sum())
+    selector = sig["selector"]
+    if incomplete > selector.n_failed_variants:
+        raise AssertionError(f"{incomplete} variants lack k-mers for one of "
+                             f"their nodes, {selector.n_failed_variants} "
+                             "were counted as failed")
+    order = np.argsort(signatures["nodes"], kind="stable")
+    nodes_s = signatures["nodes"][order]
+    offsets_s = signatures["ref_offsets"][order]
+    same_node = nodes_s[1:] == nodes_s[:-1]
+    if np.any(same_node & (offsets_s[1:] != offsets_s[:-1])):
+        raise AssertionError("a node was selected at two positions")
+
+    written, loaded = sig["bundle"], sig["loaded"]
+    if sorted(written.indexes) != sorted(loaded.indexes):
+        raise AssertionError("the bundle read back has other entries")
+    served = loaded["KmerIndex"]
+    if served.device != dev:
+        raise AssertionError(f"the bundle's index lies on {served.device}")
+    assert_columns_equal(served.to_properties(),
+                         written["KmerIndex"].to_properties(),
+                         "the index read back from the bundle")
+    for name in ("ReverseKmerIndex", "ReferenceKmerIndex",
+                 "VariantNodesIndex"):
+        # a class the bundle does not know comes back as a namespace of
+        # its arrays, as in the JAX package
+        assert_columns_equal(
+            vars(loaded[name]),
+            {p: getattr(written[name], p) for p in written[name].properties},
+            f"{name} read back from the bundle")
+    assert_columns_equal(
+        {p: getattr(loaded["VariantToNodes"], p)
+         for p in ("ref_nodes", "var_nodes")},
+        {"ref_nodes": sig["v2n"].ref_nodes, "var_nodes": sig["v2n"].var_nodes},
+        "VariantToNodes read back from the bundle")
+
+    queries = torch.cat(sig["queries"].segments)
+    want = join_counts(served.kmers, served.nodes, queries, sig["n_nodes"])
+    counts = torch.from_numpy(sig["counts"]).to(dev)
+    if counts.shape != (sig["n_nodes"],) or not torch.equal(counts, want):
+        raise AssertionError("the signature path's node counts differ from "
+                             "the join")
+    hits = int(counts.sum())
+    if hits == 0:
+        raise AssertionError("no read k-mer hit the signature index")
+    print(f"signature path: graph from variants == the build path's graph; "
+          f"K1 == plain (bit-exact) on the sweep's tape of {len(refseq)} "
+          f"bases; the sweep holds numpy's hash at {len(sample)} sampled "
+          f"positions; get_frequencies on the card == native on {len(q)} "
+          f"queries; batched == per-variant selection on {len(head)} "
+          f"variants ({len(exact['hashes'])} rows); {int(has_nodes.sum())} "
+          f"variants with nodes, {incomplete} incomplete, "
+          f"{selector.n_failed_variants} failed; no node at two positions; "
+          f"bundle read back == written; node counts == join ({hits} hits "
+          f"of {queries.shape[0]} read k-mers)", flush=True)
+    return err
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
 
 def kernel_entries(launches, hash_launches, lookup_launches, errs,
-                   timed, build_launches=None) -> list:
+                   timed, later_paths=None) -> list:
     """The entries of the ``kernels`` line: every kernel with its source,
     the code it replaces, its launches on its own path, its error against
-    the twin and its measured and bound times. A kernel that the build
-    path launched too (``build_launches``) reports the sum of its two
-    paths' launches, and each path's count under ``launches_by_path``."""
+    the twin and its measured and bound times. A kernel that a later path
+    launched too (``later_paths``: path name -> that path's launch counts,
+    e.g. ``build``, ``signature``) reports the sum over its paths, and
+    each path's count under ``launches_by_path``."""
     sources = {"sliding_hash": (K1_SOURCE, K1_REPLACES, launches),
                "packed_lookup": (K2_SOURCE, K2_REPLACES, launches),
                "sliding_pack_p16": (K3_SOURCE, K3_REPLACES, hash_launches),
@@ -1534,11 +1867,12 @@ def kernel_entries(launches, hash_launches, lookup_launches, errs,
                for name, (source, replaces, path_launches)
                in sources.items()]
     for entry in kernels:
-        on_build = (build_launches or {}).get(entry["name"], 0)
-        if on_build:
+        later = {path: counts.get(entry["name"], 0)
+                 for path, counts in (later_paths or {}).items()}
+        if any(later.values()):
             entry["launches_by_path"] = {"read_mapping": entry["launches"],
-                                         "build": on_build}
-            entry["launches"] += on_build
+                                         **later}
+            entry["launches"] += sum(later.values())
         missing = [key for key in KERNEL_KEYS if key not in entry]
         if missing:
             raise AssertionError(f"kernel {entry['name']} lacks {missing}")
@@ -1658,10 +1992,30 @@ def main(argv=None) -> int:
     errs["sliding_hash"]["max_abs_err"] = max(
         errs["sliding_hash"]["max_abs_err"],
         check_build(dev, built, build_launches, gen))
-    del built
+
+    # the signature path scores against the build path's index; its packed
+    # table is not needed again
+    del built["tables"], built["queries"]
+    built["index"]._invalidate_query_caches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        sig = signature_path(dev, card, args, built, workdir)
+    signature_launches = dict(_kernels.launch_counts)
+    print(f"signature path launches {signature_launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev)} bytes [{card}]",
+          flush=True)
+    errs["sliding_hash"]["max_abs_err"] = max(
+        errs["sliding_hash"]["max_abs_err"],
+        check_signature(dev, card, built, sig, signature_launches,
+                        SWEEP_SAMPLE, FREQUENCY_SAMPLE, EXACT_VARIANTS,
+                        np.random.default_rng(args.seed + 4)))
+    del built, sig
 
     kernels = kernel_entries(launches, hash_launches, lookup_launches, errs,
-                             timed, build_launches)
+                             timed, {"build": build_launches,
+                                     "signature": signature_launches})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

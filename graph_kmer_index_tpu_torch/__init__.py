@@ -1,6 +1,6 @@
 """graph_kmer_index_tpu_torch — the PyTorch/CUDA port of graph_kmer_index_tpu.
 
-Two paths are ported. Read mapping (KAGE's mapping hot loop):
+Three paths are ported. Read mapping (KAGE's mapping hot loop):
 
     FASTA/FASTQ -> 2-bit read tape -> sliding-window k-mer hashes (kernel
     K1, ``csrc/sliding_hash.cu``) -> packed-record lookup in a
@@ -13,6 +13,15 @@ And the build that feeds it:
     C++ walker, ``csrc/host/``) -> span expansion on the device
     (``ops.finalize``, hashing the span tapes with K1) -> collision-free
     index with frequencies (``KmerIndex.from_flat_kmers``) -> packed table.
+
+And the variant-signature path, which makes what KAGE ships:
+
+    reference + VCF variants -> ``build_graph_from_vcf`` -> the scoring
+    index above -> ``SnpKmerFinder`` (a sweep of the linear reference,
+    hashed by K1) -> ``UniqueVariantKmersFinder`` (signature k-mers per
+    variant, scored by ``KmerIndex.get_frequencies`` on the index's
+    device) -> signature ``KmerIndex`` with its reverse, reference and
+    variant-nodes indexes -> ``IndexBundle`` on disk -> read counts.
 
 The package imports neither ``jax`` nor ``graph_kmer_index_tpu``: the
 machine with the card has no JAX, so the host layer (graph, finder,
@@ -30,12 +39,39 @@ import importlib
 # each of them seconds of start-up that they would never use
 _EXPORTS = {
     "require_cuda": ".device", "resolve_device": ".device",
+    **dict.fromkeys((
+        "power_array", "reverse_power_array", "letter_sequence_to_numeric",
+        "numeric_to_letter_sequence", "kmer_to_hash_fast", "update_hash",
+        "sequence_to_kmer_hash", "kmer_hash_to_sequence",
+        "kmer_hashes_to_bases", "kmer_hashes_to_complement_hashes",
+        "kmer_hashes_to_reverse_complement_hash",
+        "kmer_hash_to_reverse_complement_hash"), ".hashing"),
     "CriticalGraphPaths": ".critical_paths",
     "DenseKmerFinder": ".finder",
     "FlatKmers": ".flat_kmers", "FlatKmers2": ".flat_kmers",
     "Graph": ".graph", "PositionId": ".graph", "VariantToNodes": ".graph",
+    "SnpKmerFinder": ".snp_finder", "IndelKmerFinder": ".snp_finder",
+    "bionumpy_hash": ".bionumpy_wrapper",
     "KmerIndex": ".models.kmer_index",
-    "DeviceReadKmers": ".read_kmers", "hash_fasta_file": ".read_kmers",
+    "CollisionFreeKmerIndex": ".models.kmer_index",
+    "MinimalKmerIndex": ".models.kmer_index",
+    "KmerIndex2": ".models.kmer_index",
+    "CounterKmerIndex": ".models.kmer_index",
+    "ReverseKmerIndex": ".models.reverse_index",
+    "ReferenceKmerIndex": ".models.reference_index",
+    "UniqueKmerIndex": ".models.unique_index",
+    "VariantNodesIndex": ".models.variant_nodes_index",
+    "KmerCounter": ".models.counters",
+    "CountMinSketchKmerCounter": ".models.counters",
+    "KmerFrequencyIndex": ".models.counters",
+    "IndexBundle": ".models.bundle",
+    "VcfVariant": ".variants", "VcfVariants": ".variants",
+    "build_graph_from_vcf": ".graph_builder",
+    "build_graph_from_files": ".graph_builder",
+    "UniqueVariantKmersFinder": ".unique_variant_kmers",
+    "sample_kmers_from_structural_variants": ".structural_variants",
+    "ReadKmers": ".read_kmers", "DeviceReadKmers": ".read_kmers",
+    "hash_fasta_file": ".read_kmers",
 }
 __all__ = sorted(_EXPORTS)
 

@@ -15,16 +15,25 @@ need the rows in bucket order.
 The query results are numpy arrays in the dtypes the JAX package returns:
 each column's own dtype as it was given (``dtypes``), frequencies as
 uint16 once ``set_frequencies`` has computed them.
+
+Also here, as in the JAX module: MinimalKmerIndex, KmerIndex2 and
+CounterKmerIndex (host numpy), and the name CollisionFreeKmerIndex for
+KmerIndex.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..containers import Counter, HashTable, MultiValueHashTable
 from ..device import resolve_device
-from ..flat_kmers import is_tensor
-from ..ops.lookup import DeviceKmerIndex, as_device_tensor
+from ..flat_kmers import FlatKmers, host_column, is_tensor
+from ..hashing import (kmer_hashes_to_complement_hashes,
+                       kmer_hashes_to_reverse_complement_hash)
+from ..ops.encode import revcomp_hashes
+from ..ops.lookup import (DeviceKmerIndex, _bucket_hits, as_device_tensor)
 from ..read_kmers import DeviceReadKmers
+from ..utils.hugepages import hp_empty, hp_zeros
 
 # the reference's default modulo (CollisionFreeKmerIndex.from_flat_kmers)
 DEFAULT_MODULO = 452930477
@@ -93,10 +102,52 @@ def frequencies_by_distinct_ref_offsets(kmers: torch.Tensor,
     return freqs
 
 
+def numpy_modulo_layout(hashes, modulo, row_arrays):
+    """:func:`build_modulo_layout` on the host in numpy, for the index
+    models that live there (JAX _build_modulo_layout): int32 row starts
+    (int64 from 2^31 rows) and uint32 bucket sizes of length ``modulo``,
+    the rows sorted by ``hashes``, and the sorting."""
+    sorting = np.argsort(hashes, kind="stable")
+
+    def take(a):
+        out = hp_empty(len(a), a.dtype)
+        np.take(a, sorting, out=out)
+        return out
+    hashes = take(hashes)
+    rows = [take(a) for a in row_arrays]
+    # ediff1d on an EMPTY array still emits the to_begin element, which
+    # would fabricate a bucket start at row 0 of a 0-row table
+    diffs = (np.ediff1d(hashes, to_begin=hashes.dtype.type(1))
+             if len(hashes) else np.zeros(0, np.int64))
+    starts = np.nonzero(diffs)[0]
+    unique_hashes = hashes[starts].astype(np.int64)
+    idx_dtype = np.int32 if len(hashes) < 2**31 else np.int64
+    lookup = hp_zeros(modulo, idx_dtype, populate=True)
+    lookup[unique_hashes] = starts
+    n_entries = np.ediff1d(starts, to_end=len(hashes) - starts[-1]) \
+        if len(starts) else np.zeros(0, dtype=np.int64)
+    n_kmers = hp_zeros(modulo, np.uint32, populate=True)
+    n_kmers[unique_hashes] = n_entries
+    return lookup, n_kmers, rows, sorting
+
+
+# the JAX class's property names (the keys of an IndexBundle entry) ->
+# this class's attributes
+_PROPERTY_TO_ATTRIBUTE = {
+    "_hashes_to_index": "hashes_to_index", "_n_kmers": "n_kmers",
+    "_nodes": "nodes", "_ref_offsets": "ref_offsets", "_kmers": "kmers",
+    "_frequencies": "frequencies",
+    "_allele_frequencies": "allele_frequencies",
+}
+
+
 class KmerIndex:
     """``modulo`` is the reference modulo of the bucket layout (the size
     of hashes_to_index). The packed lookup does not read it: it hashes
     into ``internal_modulo(len(kmers))``."""
+
+    # the JAX class's properties: what an IndexBundle stores of an index
+    properties = set(_PROPERTY_TO_ATTRIBUTE) | {"_modulo"}
 
     # below this batch size the scalar get loop is used, as in the JAX
     # package
@@ -120,6 +171,7 @@ class KmerIndex:
             self.dtypes[name] = _np_dtype(getattr(self, name))
         self.dtypes.update(dtypes or {})
         self.device_index = DeviceKmerIndex(self)
+        self._native_index = None
 
     @classmethod
     def from_arrays(cls, kmers, nodes, modulo, device,
@@ -142,6 +194,32 @@ class KmerIndex:
                                int(modulo), device, **columns)
 
     @classmethod
+    def from_properties(cls, properties: dict, device) -> "KmerIndex":
+        """An index from the JAX class's eight properties under their
+        names there (``_kmers``, ``_nodes``, ``_modulo``,
+        ``_hashes_to_index``, ``_n_kmers``, ``_ref_offsets``,
+        ``_frequencies``, ``_allele_frequencies``) as numpy arrays: the
+        entry of an IndexBundle, or a JAX-package index's attributes. A
+        missing column stays None (frequencies: 0)."""
+        columns = {attr: properties[prop]
+                   for prop, attr in _PROPERTY_TO_ATTRIBUTE.items()
+                   if properties.get(prop) is not None
+                   and attr not in ("kmers", "nodes")}
+        return cls.from_arrays(
+            np.asarray(properties["_kmers"]), np.asarray(properties["_nodes"]),
+            int(properties.get("_modulo", DEFAULT_MODULO)), device, **columns)
+
+    def to_properties(self) -> dict:
+        """The inverse of :meth:`from_properties`: host numpy arrays in
+        the dtypes of the JAX class's file (k-mers uint64), a placeholder
+        column as it is, ``_modulo`` an int."""
+        out = {prop: self._file_column(attr)
+               for prop, attr in _PROPERTY_TO_ATTRIBUTE.items()
+               if getattr(self, attr) is not None}
+        out["_modulo"] = int(self.modulo)
+        return out
+
+    @classmethod
     def from_rows(cls, kmers, nodes, ref_offsets, allele_frequencies,
                   modulo=DEFAULT_MODULO, *, device,
                   skip_frequencies=False, dtypes=None) -> "KmerIndex":
@@ -154,6 +232,7 @@ class KmerIndex:
         dtypes = {"nodes": _np_dtype(nodes),
                   "ref_offsets": _np_dtype(ref_offsets),
                   "allele_frequencies": _np_dtype(allele_frequencies),
+                  "n_kmers": np.dtype(np.uint32),
                   **(dtypes or {})}
         km = as_device_tensor(kmers, torch.int64, dev)
         cols = [km, as_device_tensor(nodes, torch.int64, dev),
@@ -192,13 +271,11 @@ class KmerIndex:
 
     def _file_column(self, name: str):
         """A column as the npz of CollisionFreeKmerIndex.to_file holds it:
-        k-mers uint64, bucket sizes uint32, every other column in its
-        dtype."""
+        k-mers uint64, every other column in its dtype (``dtypes``; a
+        built index's bucket sizes are uint32)."""
         col = getattr(self, name)
         if not isinstance(col, torch.Tensor):
             return col
-        if name == "n_kmers":
-            return _to_numpy(col, np.uint32)
         a = _to_numpy(col, self.dtypes[name])
         return a.view(np.uint64) if name == "kmers" else a
 
@@ -231,9 +308,10 @@ class KmerIndex:
     # -- maintenance ---------------------------------------------------------
 
     def _invalidate_query_caches(self) -> None:
-        """A fresh device view after a column changes, so that no query
-        reads a stale copy."""
+        """A fresh device view, and no native view, after a column
+        changes, so that no query reads a stale copy."""
         self.device_index = DeviceKmerIndex(self)
+        self._native_index = None
 
     def set_frequencies(self, skip=False) -> None:
         """Frequencies by distinct ref offsets, computed on the index's
@@ -262,6 +340,79 @@ class KmerIndex:
 
     def max_node_id(self) -> int:
         return int(self.nodes.max())
+
+    def set_frequencies_using_other_index(self, other, multiplier=1,
+                                          min_frequency=1) -> None:
+        """frequency[row] = max(min_frequency, multiplier x the frequency
+        of the row's k-mer in ``other``), where ``other`` is anything with
+        ``get_frequencies`` (reference collision_free_kmer_index.py:252-265).
+        The distinct k-mers are found, and each row matched to its own,
+        on the index's device; the column comes back in its dtype."""
+        unique = torch.unique(self.kmers)
+        queries = (unique if isinstance(other, KmerIndex)
+                   else unique.cpu().numpy().view(np.uint64))
+        freqs = np.asarray(other.get_frequencies(queries), dtype=np.int64)
+        idx = torch.searchsorted(unique, self.kmers).cpu().numpy()
+        dtype = (self.dtypes["frequencies"] if np.ndim(self.frequencies)
+                 else np.dtype(np.uint16))
+        self._invalidate_query_caches()
+        self.frequencies = np.maximum(
+            min_frequency, freqs[idx] * multiplier).astype(dtype)
+        self.dtypes["frequencies"] = dtype
+
+    def set_allele_frequencies(self, frequencies) -> None:
+        pass  # reference no-op (collision_free_kmer_index.py:234-235)
+
+    def copy(self) -> "KmerIndex":
+        def dup(col):
+            if isinstance(col, torch.Tensor):
+                return col.clone()
+            return col.copy() if np.ndim(col) else col
+
+        return KmerIndex(
+            dup(self.kmers), dup(self.nodes), self.modulo,
+            dtypes=dict(self.dtypes),
+            **{name: dup(getattr(self, name)) for name in _COLUMNS})
+
+    def clear(self) -> None:
+        self.hashes_to_index = None
+        self.n_kmers = None
+        self.nodes = None
+        self.kmers = None
+        self.modulo = None
+        self.device_index = None
+        self._native_index = None
+
+    def convert_to_int32(self) -> None:
+        """Bucket tables and nodes as int32 (in every result and file;
+        the node column on the device stays int64, which the lookup
+        kernel reads)."""
+        self._invalidate_query_caches()
+        for name in ("hashes_to_index", "n_kmers"):
+            col = getattr(self, name)
+            setattr(self, name, col.to(torch.int32)
+                    if isinstance(col, torch.Tensor)
+                    else np.asarray(col).astype(np.int32))
+        for name in ("hashes_to_index", "n_kmers", "nodes"):
+            self.dtypes[name] = np.dtype(np.int32)
+
+    def get_kmers(self) -> np.ndarray:
+        return self._file_column("kmers")
+
+    def convert_kmers_to_complement(self, k=31,
+                                    skip_frequencies=True) -> "KmerIndex":
+        """A new index over the base-complemented k-mers (same order of
+        bases), on this index's device."""
+        kmers = self._file_column("kmers")
+        chunks = np.array_split(kmers, max(1, len(kmers) // 10000000))
+        new_kmers = np.concatenate(
+            [kmer_hashes_to_complement_hashes(c, k) for c in chunks])
+        return KmerIndex.from_flat_kmers(
+            FlatKmers(new_kmers, self._file_column("nodes"),
+                      self._file_column("ref_offsets"),
+                      self._file_column("allele_frequencies")),
+            modulo=self.modulo, skip_frequencies=skip_frequencies,
+            device=self.device)
 
     # -- scalar queries (API parity) -----------------------------------------
 
@@ -300,6 +451,89 @@ class KmerIndex:
     def get_nodes(self, kmer, max_hits=10):
         return self.get(kmer, max_hits)[0]
 
+    def get_grouped_nodes(self, kmer, max_hits=10):
+        hits = self.get(kmer, max_hits)
+        if hits[0] is None:
+            return None
+        nodes, ref_offsets = hits[0], hits[1]
+        sorting = np.argsort(ref_offsets, kind="stable")
+        ref_offsets = ref_offsets[sorting]
+        nodes = nodes[sorting]
+        _, starts = np.unique(ref_offsets, return_index=True)
+        bounds = list(starts) + [len(ref_offsets)]
+        return [nodes[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def get_frequency(self, kmer, include_reverse_complement=True, k=31):
+        hits = self.get(kmer, max_hits=10**15)
+        f = 0 if hits[0] is None else int(hits[2][0])
+        if include_reverse_complement:
+            rev = int(kmer_hashes_to_reverse_complement_hash(
+                np.array([kmer], dtype=np.uint64), k)[0])
+            rhits = self.get(rev, max_hits=10**15)
+            if rhits[0] is not None:
+                f += int(rhits[2][0])
+        return f
+
+    def _first_frequencies(self, q: torch.Tensor) -> torch.Tensor:
+        """int64 frequency of the FIRST row that holds each query k-mer
+        (0 for a miss), from the bucket ranges on the index's device:
+        plain torch, no column leaves the device."""
+        dev = self.device_index
+        ids, rows = _bucket_hits(q, dev.table_kmers, dev.starts_tbl,
+                                 dev.sizes_tbl, dev.modulo)
+        n_rows = int(self.kmers.shape[0])
+        first = torch.full((q.shape[0],), n_rows, dtype=torch.int64,
+                           device=q.device)
+        first.scatter_reduce_(0, ids, rows, "amin")
+        hit = first < n_rows
+        out = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+        out[hit] = dev.table_frequencies[first[hit]].to(torch.int64)
+        return out
+
+    def get_frequencies(self, kmers, include_reverse_complement=True,
+                        k=31, backend=None) -> np.ndarray:
+        """:meth:`get_frequency` of a batch (a tensor or a numpy array of
+        hashes), int64: the first hit's frequency plus the reverse
+        complement's first hit's, the complement taken with ``k`` = 31
+        unless the caller names another (the reference's quirk, kept).
+        ``backend`` 'device' answers from the bucket ranges on the
+        index's device (plain torch; no column leaves the device),
+        'native' through the host C++ library, as the JAX package does
+        (an index on a CUDA device is copied to the host once for it);
+        None: 'device' for an index on a CUDA device, and for one on the
+        CPU 'native' where the library is there. The same numbers either
+        way."""
+        q = self._queries(kmers)
+        if backend is None:
+            backend = ("native" if self.device.type == "cpu"
+                       and self._native() is not None else "device")
+        if backend == "device":
+            freqs = self._first_frequencies(q)
+            if include_reverse_complement:
+                freqs = freqs + self._first_frequencies(revcomp_hashes(q, k))
+            return freqs.cpu().numpy()
+        if backend != "native":
+            raise ValueError(f"unknown backend {backend!r}")
+        nk = self._native()
+        if nk is None:
+            raise RuntimeError("the native host library is not available")
+        big = 1 << 60
+
+        def first_freqs(qs):
+            hits = nk.get(qs, hit_cap=big, freq_cap=big)
+            out = np.zeros(len(qs), dtype=np.int64)
+            qi = hits[2].astype(np.int64)
+            # reversed write: the FIRST hit per query wins
+            out[qi[::-1]] = hits[3][::-1].astype(np.int64)
+            return out
+
+        queries = q.cpu().numpy().view(np.uint64)
+        freqs = first_freqs(queries)
+        if include_reverse_complement:
+            freqs = freqs + first_freqs(
+                kmer_hashes_to_reverse_complement_hash(queries, k))
+        return freqs
+
     # -- batched queries -------------------------------------------------------
 
     def _queries(self, kmers) -> torch.Tensor:
@@ -307,23 +541,55 @@ class KmerIndex:
             kmers = np.asarray(kmers, dtype=np.uint64)
         return as_device_tensor(kmers, torch.int64, self.device)
 
-    def map_kmers(self, kmers, n_nodes: int) -> np.ndarray:
+    def _native(self):
+        """The native (C++) view of this index, made at first use; None
+        without the native library."""
+        if self._native_index is None:
+            from .native_index import NativeKmerIndex
+            self._native_index = (NativeKmerIndex(self)
+                                  if NativeKmerIndex.available() else False)
+        return self._native_index or None
+
+    def _host_queries(self, kmers) -> np.ndarray:
+        if isinstance(kmers, DeviceReadKmers):
+            return kmers.to_numpy()
+        return np.ascontiguousarray(host_column(kmers, unsigned=True),
+                                    dtype=np.uint64)
+
+    def map_kmers(self, kmers, n_nodes: int, backend="device") -> np.ndarray:
         """Node hit counts (int64, length n_nodes, nodes >= n_nodes
         dropped) for query k-mers: a DeviceReadKmers, a tensor or a numpy
-        array of hashes."""
+        array of hashes. ``backend``: 'device' (the lookup on the index's
+        device) or 'native' (host C++; the device lookup where there is
+        no native library, as in the JAX package)."""
+        if backend == "native" and self._native() is not None:
+            return self._native().map_kmers(self._host_queries(kmers),
+                                            n_nodes)
         if isinstance(kmers, DeviceReadKmers):
             counts = self.device_index.map_read_kmers(kmers, n_nodes)
         else:
             counts = self.device_index.map_kmers(self._queries(kmers), n_nodes)
         return counts.cpu().numpy()
 
-    def has_kmers(self, kmers) -> np.ndarray:
+    def has_kmers(self, kmers, backend="device") -> np.ndarray:
         """Membership of each query k-mer (bool, in query order)."""
+        if backend == "native" and self._native() is not None:
+            return self._native().has_kmers(self._host_queries(kmers))
         if isinstance(kmers, DeviceReadKmers):
             hit = self.device_index.has_read_kmers(kmers)
         else:
             hit = self.device_index.has_kmers(self._queries(kmers))
         return hit.cpu().numpy()
+
+    def has_kmers_parallel(self, kmers, n_threads) -> np.ndarray:
+        """Membership, the queries cut into ``n_threads`` parts that are
+        answered one after another on the index's device (the reference
+        forks processes, the JAX package shards over a mesh; the answer
+        is the same)."""
+        q = self._queries(kmers)
+        parts = [self.device_index.has_kmers(c)
+                 for c in torch.tensor_split(q, max(1, int(n_threads)))]
+        return torch.cat(parts).cpu().numpy()
 
     def get_batched(self, kmers, max_hits=10) -> np.ndarray:
         """(5, n_hits) uint64 [node, ref_offset, query index, frequency,
@@ -392,3 +658,139 @@ class KmerIndex:
         out = [self.get(h, max_hits=max_hits)[0] for h in kmers]
         out = [o for o in out if o is not None]
         return np.concatenate(out) if out else np.array([])
+
+
+CollisionFreeKmerIndex = KmerIndex
+
+
+class MinimalKmerIndex:
+    """Modulo layout minus ref_offsets/frequencies (reference
+    collision_free_kmer_index.py:44-106); host numpy."""
+
+    def __init__(self, hashes_to_index, n_kmers, nodes, kmers, modulo):
+        self._hashes_to_index = hashes_to_index.astype(np.int64)
+        self._n_kmers = n_kmers.astype(np.uint32)
+        self._nodes = nodes.astype(np.uint32)
+        self._kmers = kmers
+        self._modulo = np.int64(modulo)
+
+    def max_node_id(self):
+        return int(np.max(self._nodes))
+
+    def to_file(self, file_name):
+        np.savez(file_name, hashes_to_index=self._hashes_to_index,
+                 n_kmers=self._n_kmers, nodes=self._nodes, kmers=self._kmers,
+                 modulo=self._modulo)
+
+    @classmethod
+    def from_file(cls, file_name):
+        try:
+            data = np.load(str(file_name) + ".npz")
+        except FileNotFoundError:
+            data = np.load(file_name)
+        return cls(data["hashes_to_index"], data["n_kmers"], data["nodes"],
+                   data["kmers"], data["modulo"])
+
+    @classmethod
+    def from_flat_kmers(cls, flat_kmers, modulo=DEFAULT_MODULO):
+        kmers = np.asarray(host_column(flat_kmers._hashes, unsigned=True),
+                           dtype=np.uint64)
+        hashes = kmers % np.uint64(modulo)
+        lookup, n_kmers, rows, _ = numpy_modulo_layout(
+            hashes, modulo, [kmers, host_column(flat_kmers._nodes)])
+        kmers_s, nodes_s = rows
+        return cls(lookup, n_kmers, nodes_s, kmers_s, modulo)
+
+
+class KmerIndex2:
+    """kmer -> {nodes, start_nodes, start_offsets, allele_frequencies}
+    multi-map (reference collision_free_kmer_index.py:110-158); frequency =
+    number of unique (start_node, start_offset) pairs per kmer."""
+
+    def __init__(self, data, frequencies=None):
+        self._data = data
+        self._frequencies = frequencies
+
+    def get_start_nodes(self, kmer):
+        return self._data[kmer]["start_nodes"]
+
+    def get_start_offsets(self, kmer):
+        return self._data[kmer]["start_offsets"]
+
+    def get_nodes(self, kmer):
+        return self._data[kmer]["nodes"]
+
+    def get_all_kmers(self):
+        return self._data.get_all_keys()
+
+    def get_kmer_frequency(self, kmer):
+        assert self._frequencies is not None, "Frequencies not set"
+        return self._frequencies[kmer]
+
+    @classmethod
+    def from_flat_kmers(cls, flat_kmers, modulo=None, skip_frequencies=False):
+        table = MultiValueHashTable.from_keys_and_values(
+            np.asarray(flat_kmers._hashes),
+            {"nodes": np.asarray(flat_kmers._nodes),
+             "start_nodes": np.asarray(flat_kmers._start_nodes),
+             "start_offsets": np.asarray(flat_kmers._start_offsets),
+             "allele_frequencies": np.asarray(flat_kmers._allele_frequencies)},
+            mod=modulo)
+        index = cls(table)
+        if not skip_frequencies:
+            index.count_unique_kmer_occurences()
+        return index
+
+    def count_unique_kmer_occurences(self):
+        """Vectorized: distinct (start_node, start_offset) pairs per kmer.
+        NB keys must come from row_keys() — get_all_keys() returns the
+        hash-sorted layout, which would pair scrambled rows against the
+        insertion-ordered value arrays and miscount."""
+        kmers = self._data.row_keys()
+        if len(np.asarray(kmers)) == 0:
+            # ediff1d on empty arrays still emits to_begin
+            self._frequencies = HashTable(np.zeros(0, np.int64),
+                                          np.zeros(0, np.int64))
+            return
+        sn = self._data._values["start_nodes"]
+        so = self._data._values["start_offsets"]
+        order = np.lexsort((np.asarray(so), np.asarray(sn), np.asarray(kmers)))
+        km, s1, s2 = (np.asarray(kmers)[order], np.asarray(sn)[order],
+                      np.asarray(so)[order])
+        new_kmer = np.ediff1d(km, to_begin=km.dtype.type(1)) != 0
+        new_pair = new_kmer | (np.ediff1d(s1, to_begin=s1.dtype.type(1)) != 0) | \
+            (np.ediff1d(s2, to_begin=s2.dtype.type(1)) != 0)
+        seg = np.cumsum(new_kmer) - 1
+        counts = np.bincount(seg, weights=new_pair.astype(np.int64)).astype(
+            np.int64)
+        self._frequencies = HashTable(km[new_kmer], counts)
+
+
+class CounterKmerIndex:
+    """Counter over index kmers; get_node_counts = bincount(nodes,
+    counter[kmers]) — the genotyping node-count kernel (reference
+    collision_free_kmer_index.py:14-40); host numpy."""
+
+    def __init__(self, kmers, nodes, counter):
+        self.kmers = kmers
+        self.nodes = nodes
+        self.counter = counter
+
+    @classmethod
+    def from_kmer_index(cls, kmer_index, modulo=None):
+        kmers = kmer_index._file_column("kmers").astype(np.int64)
+        nodes = kmer_index._file_column("nodes")
+        unique_kmers = np.unique(kmers)
+        counter = Counter(unique_kmers, 0,
+                          mod=modulo if modulo else kmer_index.modulo,
+                          value_dtype=np.uint16)
+        return cls(kmers, nodes, counter)
+
+    def count_kmers(self, kmers, update_counter=True):
+        if not update_counter:
+            self.counter._counts[:] = 0
+        self.counter.count(np.asarray(kmers).astype(np.int64))
+
+    def get_node_counts(self, min_nodes=0):
+        return np.bincount(self.nodes, self.counter[self.kmers],
+                           minlength=min_nodes)

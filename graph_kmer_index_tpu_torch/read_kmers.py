@@ -1,5 +1,6 @@
-"""FASTA/FASTQ read streaming: the port of graph_kmer_index_tpu/read_kmers.py's
-device path (``hash_fasta_file(keep_on_device=True)``).
+"""FASTA/FASTQ read streaming: the port of graph_kmer_index_tpu/read_kmers.py:
+its device path (``hash_fasta_file(keep_on_device=True)``) as
+:func:`hash_fasta_file`, and the per-read host class ``ReadKmers``.
 
 The file is parsed on the host in whole-record blocks into a 2-bit read
 tape (by the native library's C++ parser where it is available, else in
@@ -9,6 +10,8 @@ k-mers stay on the device for the lookup.
 """
 from __future__ import annotations
 
+import itertools
+import logging
 import time
 
 import numpy as np
@@ -16,13 +19,21 @@ import torch
 
 from . import native
 from .device import resolve_device
-from .hashing import ASCII_TO_2BIT
+from .hashing import (ASCII_TO_2BIT, kmer_to_hash_fast,
+                      letter_sequence_to_numeric, power_array,
+                      sliding_window_hashes)
 from .ops.encode import read_tape_hashes, revcomp_hashes
 
 # a tape segment holds at most this many bases (cut at read boundaries):
 # it bounds the device transients of hashing and compaction
 SEGMENT_BASES = 1 << 28
 BLOCK_BYTES = 1 << 27
+
+_COMP = str.maketrans("acgtACGT", "tgcaTGCA")
+
+
+def reverse_complement_string(seq: str) -> str:
+    return seq.translate(_COMP)[::-1]
 
 
 def _iter_record_blocks(path: str, block_bytes: int):
@@ -166,3 +177,81 @@ def hash_fasta_file(path, k: int, *, device,
                 rc.append(revcomp_hashes(hashes, k))
             t = mark("hash", t)
     return DeviceReadKmers(fw + rc, k)
+
+
+class ReadKmers:
+    """Per-read window hashes on the host (reference read_kmers.py:9-89):
+    an iterable of one uint64 array per read. The batched route to the
+    device is :func:`hash_fasta_file`; ``ReadKmers.hash_fasta_file``
+    returns its k-mers as the uint64 numpy array of the JAX package's
+    host path."""
+
+    def __init__(self, kmers):
+        self.kmers = kmers
+        self._power_vector = None
+
+    @classmethod
+    def from_fasta_file(cls, fasta_file_name, k, small_k=None, smallest_k=8):
+        with open(fasta_file_name) as f:
+            lines = [l.strip() for l in f.readlines() if not l.startswith(">")]
+        logging.info("Number of lines: %d", len(lines))
+
+        def both_strands(power_vector):
+            return (itertools.chain(
+                ReadKmers.get_kmers_from_read_dynamic(line, power_vector),
+                ReadKmers.get_kmers_from_read_dynamic(
+                    reverse_complement_string(line), power_vector))
+                for line in lines)
+
+        power_vector = power_array(k)
+        if small_k is None:
+            kmers = itertools.chain(
+                (ReadKmers.get_kmers_from_read_dynamic(line, power_vector)
+                 for line in lines),
+                (ReadKmers.get_kmers_from_read_dynamic(
+                    reverse_complement_string(line), power_vector)
+                 for line in lines))
+        else:
+            kmers = zip(both_strands(power_vector),
+                        both_strands(power_array(small_k)),
+                        both_strands(power_array(smallest_k)))
+        return cls(kmers)
+
+    @classmethod
+    def from_list_of_string_kmers(cls, string_kmers):
+        kmers = [
+            [kmer_to_hash_fast(letter_sequence_to_numeric(k), len(k))
+             for k in read_kmers]
+            for read_kmers in string_kmers]
+        return cls(kmers)
+
+    @staticmethod
+    def get_kmers_from_read(read, k):
+        return [
+            kmer_to_hash_fast(letter_sequence_to_numeric(read[i:i + k]), k)
+            for i in range(len(read) - k)]
+
+    @staticmethod
+    def get_kmers_from_read_dynamic(read, power_vector):
+        """All window hashes of a read; ``power_vector`` carries k
+        (reference read_kmers.py:68-70 np.convolve equivalent)."""
+        k = len(power_vector)
+        numeric = letter_sequence_to_numeric(read)
+        return sliding_window_hashes(numeric, k)
+
+    @staticmethod
+    def hash_fasta_file(fasta_file_name, k, include_reverse_complements=False,
+                        *, device, block_bytes=None) -> np.ndarray:
+        """All window hashes of all reads of a FASTA/FASTQ file as one
+        uint64 array (forward k-mers in read order, then the reverse
+        complements), hashed on ``device``."""
+        return hash_fasta_file(
+            fasta_file_name, k, device=device,
+            include_reverse_complements=include_reverse_complements,
+            block_bytes=block_bytes).to_numpy()
+
+    def __iter__(self):
+        return self.kmers.__iter__()
+
+    def __next__(self):
+        return self.kmers.__next__()

@@ -3,12 +3,16 @@ planted repeats and reads sampled from it with substitutions, written as
 FASTA (the read-mapping path); and the JAX package's synthetic SNP/indel
 pangenome graph (``random_snp_graph``: the same rng calls in the same
 order, so a seed gives the same graph in both packages), which the build
-path indexes."""
+path indexes, and that graph as a reference sequence with VCF variants
+(``reference_and_variants``), from which the signature path builds it
+again."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..graph import Graph, VariantToNodes
+from ..hashing import numeric_to_letter_sequence
+from ..variants import VcfVariant, VcfVariants
 
 _ASCII = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -139,3 +143,30 @@ def random_snp_graph(n_ref_bases: int = 100000, n_variants: int = 1000,
     v2n = VariantToNodes(np.array(ref_nodes_v, dtype=np.int32),
                          np.array(var_nodes_v, dtype=np.int32))
     return graph, v2n
+
+
+def reference_and_variants(graph: Graph, variant_to_nodes: VariantToNodes,
+                           chromosome: str = "1"):
+    """(reference string, VcfVariants) that describe a graph of
+    :func:`random_snp_graph`: its linear reference, and per variant a VCF
+    record as a variant caller would write it. A SNP is REF base -> ALT
+    base at its 1-based position; an insertion (empty ref-allele node) is
+    anchored on the base before it, REF = anchor, ALT = anchor + inserted
+    bases. ``build_graph_from_vcf`` over the two gives the same graph
+    again, node for node."""
+    _, _, refseq = graph.linear_ref_sequence()
+    reference = "".join(numeric_to_letter_sequence(refseq).tolist()).upper()
+    starts = np.asarray(graph.node_to_ref_offset)
+    variants = []
+    for line, (ref_node, var_node) in enumerate(variant_to_nodes):
+        ref_node, var_node = int(ref_node), int(var_node)
+        pos0 = int(starts[ref_node])
+        alt = graph.get_node_sequence(var_node).upper()
+        if graph.get_node_size(ref_node):
+            variants.append(VcfVariant(chromosome, pos0 + 1, reference[pos0],
+                                       alt, vcf_line_number=line))
+        else:
+            anchor = reference[pos0 - 1]
+            variants.append(VcfVariant(chromosome, pos0, anchor, anchor + alt,
+                                       vcf_line_number=line))
+    return reference, VcfVariants(variants)

@@ -63,9 +63,13 @@ def test_map_reads_cli_rejects_unported_options(tmp_path):
             "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_cli.run_argument_parser(base + ["-T", "shards"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cli.run_argument_parser(base + ["-i", index_path,
-                                              "-b", "native"])
+    # the native backend is ported: it gives the device backend's counts
+    mapped = base + ["-i", index_path, "-k", "15"]
+    torch_cli.run_argument_parser(mapped + ["-b", "native"])
+    native_counts = np.load(tmp_path / "o.npy")
+    torch_cli.run_argument_parser(mapped + ["-b", "device"])
+    assert native_counts.sum() > 0
+    assert np.array_equal(native_counts, np.load(tmp_path / "o.npy"))
 
 
 @pytest.mark.parametrize("text,value", [("true", True), ("False", False),
@@ -76,5 +80,5 @@ def test_strict_bool(text, value):
 
 def test_strict_bool_rejects_other_words():
     with pytest.raises(SystemExit):
-        torch_cli.build_parser().parse_args(
+        torch_cli.build_argument_parser().parse_args(
             ["map_reads", "-r", "x", "-o", "y", "-R", "yes"])

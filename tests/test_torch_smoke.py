@@ -219,6 +219,75 @@ def test_smoke_build_phase_on_cpu(capsys, monkeypatch):
     assert "node counts == join" in out
 
 
+def test_smoke_signature_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    """The signature phase at a tiny size over a tiny build phase's graph
+    and index: reference + variants -> graph -> sweep -> batched selection
+    -> signature index -> bundle -> read counts, and its checks."""
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    args = cs.parse_args(["--build-bases", "60000", "--build-variants",
+                          "240", "--build-reads", "300"])
+    cs.require_native()
+    built = cs.build_path(dev, "CPU", args, n_workers=2, mp_context=None,
+                          modulo=100_003)
+    # the sweep hashes on the device whatever the tape's length
+    monkeypatch.setattr(cs.SnpKmerFinder, "DEVICE_TAPE_THRESHOLD", 0)
+    _kernels.reset_launch_counts()
+    sig = cs.signature_path(dev, "CPU", args, built, tmp_path, modulo=10_007)
+    selector = sig["selector"]
+    assert selector.n_batched_variants == len(sig["variants"]) == 239
+    assert selector.n_fallback_variants == selector.n_failed_variants == 0
+    assert len(sig["signatures"]) == 478
+    assert sig["loaded"]["KmerIndex"].modulo == 10_007
+    assert sig["counts"].shape == (sig["n_nodes"],) and sig["counts"].sum() > 0
+    rng = np.random.default_rng(4)
+    # a CPU tensor takes the twins: nothing was launched, and the check
+    # says so
+    with pytest.raises(AssertionError, match="sliding_hash was not launched "
+                       "by the signature path"):
+        cs.check_signature(dev, "CPU", built, sig,
+                           dict(_kernels.launch_counts), 200, 1000, 60, rng)
+    launches = dict.fromkeys(_kernels.launch_counts, 0)
+    launches.update(sliding_hash=2, packed_lookup=2)
+    with pytest.raises(AssertionError, match="inside SnpKmerFinder"):
+        cs.check_signature(dev, "CPU", built, sig, launches, 200, 1000, 60,
+                           rng)
+    sig["sweep_launches"] = sig["map_launches"] = 1
+    assert cs.check_signature(dev, "CPU", built, sig, launches, 200, 1000,
+                              60, rng) == 0
+    sig["counts"][int(sig["counts"].argmax())] += 1
+    with pytest.raises(AssertionError, match="differ from the join"):
+        cs.check_signature(dev, "CPU", built, sig, launches, 200, 1000, 60,
+                           rng)
+    sig["counts"][int(sig["counts"].argmax())] -= 1
+    sig["loaded"]["KmerIndex"].nodes[3] += 1
+    with pytest.raises(AssertionError, match="read back from the bundle"):
+        cs.check_signature(dev, "CPU", built, sig, launches, 200, 1000, 60,
+                           rng)
+    sig["loaded"]["KmerIndex"].nodes[3] -= 1
+    sig["swept"]._hashes[:] += np.uint64(1)
+    with pytest.raises(AssertionError, match="lacks the hash"):
+        cs.check_signature(dev, "CPU", built, sig, launches, 200, 1000, 60,
+                           rng)
+    out = capsys.readouterr().out
+    for stage in ("reference and variants (host, set-up)",
+                  "graph from variants (build_graph_from_vcf, host)",
+                  "sweep (SnpKmerFinder.find_kmers)",
+                  "batched signature selection",
+                  "signature index build (from_flat_kmers)",
+                  "reverse, reference and variant-nodes indexes (host)",
+                  "bundle write (IndexBundle.to_file)",
+                  "bundle read (IndexBundle.from_file)",
+                  "reads -> counts (hash_fasta_file + map_kmers on the "
+                  "bundle's index)"):
+        assert f"stage {stage}: " in out, stage
+    assert "n_batched_variants 239" in out
+    assert "graph from variants == the build path's graph" in out
+    assert "batched == per-variant selection on 60 variants" in out
+
+
 def test_smoke_numpy_index_build_is_the_jax_packages():
     """The independent numpy build that the smoke holds the port's index
     against agrees with the JAX package's host build."""
@@ -244,12 +313,15 @@ def test_smoke_kernel_entries_add_the_build_paths_launches():
                     **cs.bound(nbytes=1e6)} for name in launches}
     build = dict.fromkeys(_kernels.launch_counts, 0)
     build.update(sliding_hash=12, packed_lookup=1)
+    signature = dict.fromkeys(_kernels.launch_counts, 0)
+    signature.update(sliding_hash=3, packed_lookup=2)
     by_name = {e["name"]: e for e in cs.kernel_entries(
-        launches, launches, launches, errs, timed, build)}
-    assert by_name["sliding_hash"]["launches"] == 14
+        launches, launches, launches, errs, timed,
+        {"build": build, "signature": signature})}
+    assert by_name["sliding_hash"]["launches"] == 17
     assert by_name["sliding_hash"]["launches_by_path"] == {
-        "read_mapping": 2, "build": 12}
-    assert by_name["packed_lookup"]["launches"] == 3
+        "read_mapping": 2, "build": 12, "signature": 3}
+    assert by_name["packed_lookup"]["launches"] == 5
     assert by_name["stream_copy"]["launches"] == 2
     assert "launches_by_path" not in by_name["stream_copy"]
     assert set(cs.BUILD_KERNELS) <= set(_kernels.launch_counts)
