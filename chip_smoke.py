@@ -138,6 +138,28 @@
    the final mapping and its node counts equal an independent join on
    the card. Prints a stage line each and the phase's peak device memory.
 
+13. The sharded phase: a genome-scale index built to disk and served from
+   bucket-range shards (its launches counted from 0 as well; those that
+   hold K2 against its twin are counted apart and taken off). Over the
+   build path's graph and critical paths: find_and_build_out_of_core
+   (make_index_out_of_core's function) with SHARD_RANGES bucket ranges
+   and 4 spawned workers, which walk the graph (native walker required)
+   and spill their rows to disk -> index_from_shard_checkpoint onto the
+   card -> convert_checkpoint_to_packed (convert_shards_to_packed's
+   function) -> each packed shard read onto the card alone
+   (checkpoint.load_shard) and the build path's read k-mers counted
+   through K2 in shard mode -> reshard_checkpoint to one shard a card ->
+   map_reads -T, the CLI's function in one spawned process a card (NCCL,
+   an explicit address and port), on the build path's reads written as
+   FASTA, both strands. Checks, each raising: the out-of-core index
+   equals the build path's from_flat_kmers index column for column; K2
+   in shard mode equals its twin on each shard (counts and membership,
+   SHARD_SAMPLE owned read k-mers and SHARD_MISSES random hashes); the
+   shards' counts sum to the single table's; the map_reads -T counts
+   equal KmerIndex.map_kmers on the same reads; K1 (in the ranks) and K2
+   were launched. Prints a stage line each (with the find, spill-write
+   and shard-build seconds and the spill and checkpoint bytes).
+
 Any failed check raises before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
@@ -145,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import socket
 import subprocess
 import sys
 import tempfile
@@ -166,6 +189,8 @@ from graph_kmer_index_tpu_torch.hashing import (  # noqa: E402
 from graph_kmer_index_tpu_torch.ops import _kernels  # noqa: E402
 from graph_kmer_index_tpu_torch.ops import (  # noqa: E402
     encode, lookup, primitives)
+from graph_kmer_index_tpu_torch.parallel import (  # noqa: E402
+    checkpoint, oocbuild, sharded)
 from graph_kmer_index_tpu_torch.parallel.host_pool import (  # noqa: E402
     find_kmers_parallel, find_kmers_parallel_device)
 from graph_kmer_index_tpu_torch.utils import synthetic  # noqa: E402
@@ -192,6 +217,20 @@ HASHING_KERNELS = ("sliding_pack_p16", "sliding_pack_p8", "stream_copy",
 LOOKUP_KERNELS = ("gather_loop", "rmw_loop", "bcast_cmp")
 BUILD_KERNELS = ("sliding_hash", "packed_lookup")
 SIGNATURE_KERNELS = ("sliding_hash", "packed_lookup")
+SHARDED_KERNELS = ("sliding_hash", "packed_lookup")
+# the sharded phase: the out-of-core build's bucket ranges (table shards),
+# and the queries of each shard that K2 in shard mode is held against its
+# twin on (owned read k-mers, then random hashes that mostly miss)
+SHARD_RANGES = 4
+SHARD_SAMPLE = 1 << 20
+SHARD_MISSES = 1 << 18
+# one rank of map_reads -T: the CLI's function in a fresh process, which
+# prints its kernel launches last
+CLI_RANK = ("import json, sys\n"
+            "from graph_kmer_index_tpu_torch import cli\n"
+            "from graph_kmer_index_tpu_torch.ops import _kernels\n"
+            "cli.run_argument_parser(sys.argv[1:])\n"
+            "print('LAUNCHES ' + json.dumps(_kernels.launch_counts))\n")
 # the signature path: the modulo of the signature index (the CLI's
 # default for an index over an index's k-mers, create_counter_index), the
 # sweep's spacing and caps (the CLI's defaults for ``make``), the
@@ -1435,7 +1474,7 @@ def build_path(dev, card, args, n_workers=BUILD_WORKERS, mp_context="spawn",
               f"{len(queries) / t_map:.1f} k-mers/s, "
               f"{int(counts.sum()) / max(1, len(queries)):.4f} hits a query")
     return dict(graph=graph, variant_to_nodes=variant_to_nodes, index=index,
-                tables=tables, stats=stats,
+                tables=tables, stats=stats, cpaths=cpaths, reads=reads,
                 n_rows=n_rows, n_nodes=n_nodes, queries=queries,
                 counts=counts)
 
@@ -1839,6 +1878,200 @@ def check_signature(dev, card, built, sig, launches, n_sweep_sample,
     return err
 
 
+def disk_bytes(prefix: str) -> int:
+    """Bytes on disk of a shard checkpoint (every ``prefix.*`` file)."""
+    p = Path(prefix)
+    return sum(f.stat().st_size for f in p.parent.glob(p.name + ".*"))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def map_reads_sharded(dev, prefix, fasta, n_nodes, out) -> dict:
+    """``map_reads -T``: the CLI's function on one rank per card (one
+    process each, NCCL; gloo for a CPU device), the group started from an
+    explicit address and port. Returns the kernel launches of all ranks."""
+    n_ranks = torch.cuda.device_count() if dev.type == "cuda" else 1
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CLI_RANK, "map_reads", "-T", prefix, "-r",
+         str(fasta), "-k", str(K), "-R", "true", "-n", str(n_nodes), "-o",
+         str(out), "--dist-init-method", init, "--dist-world-size",
+         str(n_ranks), "--dist-rank", str(rank), "--device", dev.type],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(n_ranks)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    launches = dict.fromkeys(_kernels.launch_counts, 0)
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"a map_reads -T rank failed "
+                                 f"({p.returncode}):\n{log[-4000:]}")
+        line = [x for x in log.splitlines() if x.startswith("LAUNCHES ")]
+        for name, n in json.loads(line[-1][len("LAUNCHES "):]).items():
+            launches[name] += n
+    return launches
+
+
+def check_shard_k2(dev, shard, t, tables, queries, n_nodes, gen) -> int:
+    """K2 in shard mode against its twin, counts and membership, on
+    SHARD_SAMPLE of the read k-mers that table shard ``t`` owns and
+    SHARD_MISSES random hashes (most owned by other shards). Returns the
+    max abs difference (0)."""
+    owner = (queries % shard.modulo2) // shard.m2_local
+    mine = queries[owner == t][:SHARD_SAMPLE]
+    misses = torch.randint(0, 1 << 62, (SHARD_MISSES,), device=dev,
+                           generator=gen)
+    q = torch.cat([mine, misses])
+    base, m2 = t * shard.m2_local, shard.m2_local
+    err = 0
+    for nodes in (n_nodes, None):
+        err = max(err, assert_equal(
+            sharded.shard_lookup(shard, t, tables, q, nodes),
+            lookup.packed_lookup_plain(tables, q, q.shape[0], nodes, base,
+                                       m2),
+            f"K2 in shard mode on shard {t} ({'counts' if nodes else 'has'})"
+        ))
+    return err
+
+
+def sharded_path(dev, card, args, built, workdir, gen,
+                 n_workers=BUILD_WORKERS, mp_context="spawn",
+                 modulo=REF_MODULO, n_ranges=SHARD_RANGES) -> dict:
+    """The sharded phase over the build path's graph, through the
+    functions a user calls: the out-of-core build to a CSR shard
+    checkpoint -> the whole index back onto the card -> the packed
+    checkpoint, each shard served on the card by K2 in shard mode ->
+    reshard to one shard a card -> ``map_reads -T``. Returns its state;
+    the kernel launches that hold K2 against its twin are counted apart
+    (``compare_launches``)."""
+    st = Stages(dev, card)
+    wd = Path(workdir)
+    stats = {}
+    t0 = time.perf_counter()
+    built_ooc = oocbuild.find_and_build_out_of_core(
+        built["graph"], K, n_workers, workdir=str(wd / "ooc"), modulo=modulo,
+        n_ranges=n_ranges, critical_paths=built["cpaths"],
+        mp_context=mp_context, require_native=True, stats=stats)
+    t_ooc = time.perf_counter() - t0
+    csr = built_ooc["prefix"]
+    csr_bytes = disk_bytes(csr)
+    st.report("out-of-core build (find_and_build_out_of_core)", t_ooc,
+              f", {built_ooc['total_rows']} rows in {n_ranges} shards; "
+              f"find + worker spill {stats['find_seconds']:.6f} s (spill "
+              f"writes {stats['spill_write_seconds']:.6f} s summed over "
+              f"{n_workers} workers, {mp_context}), shard builds "
+              f"{stats['build_seconds']:.6f} s; {stats['spill_bytes']} "
+              f"bytes spilled, {csr_bytes} bytes of CSR checkpoint")
+    index = st.run("index_from_shard_checkpoint onto the card",
+                   oocbuild.index_from_shard_checkpoint, csr, dev)
+
+    t0 = time.perf_counter()
+    packed = oocbuild.convert_checkpoint_to_packed(
+        csr, str(wd / "convert"), n_table=n_ranges, n_workers=n_workers)
+    packed_bytes = disk_bytes(packed["prefix"])
+    st.report("convert_shards_to_packed", time.perf_counter() - t0,
+              f", {n_ranges} shards, modulo2 {packed['modulo2']}, "
+              f"{packed_bytes} bytes of packed checkpoint")
+
+    n_nodes = built["n_nodes"]
+    queries = torch.cat(built["queries"].segments)
+    counts = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
+    k2_err, compare_launches, load_s, serve_s = 0, 0, 0.0, 0.0
+    for t in range(n_ranges):
+        sync(dev)
+        t0 = time.perf_counter()
+        shard = checkpoint.load_shard(packed["prefix"], t, dev)
+        tables = sharded.shard_tables(shard, t, shard.records,
+                                      shard.row_kmers, shard.row_nodes, dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        counts += sharded.shard_lookup(shard, t, tables, queries, n_nodes)
+        sync(dev)
+        load_s += t1 - t0
+        serve_s += time.perf_counter() - t1
+        before = _kernels.launch_counts["packed_lookup"]
+        k2_err = max(k2_err, check_shard_k2(dev, shard, t, tables, queries,
+                                            n_nodes, gen))
+        compare_launches += _kernels.launch_counts["packed_lookup"] - before
+        del shard, tables
+    st.report("packed shards to the card, one at a time", load_s)
+    st.report(f"K2 in shard mode, {n_ranges} shards", serve_s,
+              f", {queries.shape[0]} read k-mers a shard")
+    for f in Path(packed["prefix"]).parent.glob(
+            Path(packed["prefix"]).name + ".*"):
+        f.unlink()  # the disk for the resharded checkpoint
+
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    serve = st.run(f"reshard_checkpoint to {n_cards} shard(s)",
+                   oocbuild.reshard_checkpoint, csr, str(wd / "serve"),
+                   n_cards)["prefix"]
+    fasta = wd / "sharded_reads.fa"
+    synthetic.write_fasta(fasta, built["reads"])
+    out = wd / "sharded_counts.npy"
+    t0 = time.perf_counter()
+    rank_launches = map_reads_sharded(dev, serve, fasta, n_nodes, out)
+    st.report(f"map_reads -T ({n_cards} rank(s), spawned)",
+              time.perf_counter() - t0,
+              f", {len(built['reads'])} reads, both strands, from "
+              f"{disk_bytes(serve)} bytes of checkpoint")
+    return dict(ooc=built_ooc, index=index, packed=packed, counts=counts,
+                k2_err=k2_err, compare_launches=compare_launches,
+                rank_launches=rank_launches, fasta=fasta,
+                served=np.load(out), n_nodes=n_nodes, csr_bytes=csr_bytes,
+                packed_bytes=packed_bytes, stats=stats)
+
+
+def check_sharded(dev, built, sh, launches) -> None:
+    """The sharded phase's results, each check raising: the out-of-core
+    index equals the build path's column for column; the shards' counts
+    sum to the single table's; map_reads -T counts equal map_kmers on the
+    same reads; the path launched K1 (map_reads -T) and K2 (the shards)."""
+    if sh["ooc"]["total_rows"] != built["n_rows"]:
+        raise AssertionError(f"{sh['ooc']['total_rows']} rows out of core, "
+                             f"{built['n_rows']} in memory")
+    got, want = sh["index"], built["index"]
+    if got.modulo != want.modulo or not (torch.equal(got.kmers, want.kmers)
+                                         and torch.equal(got.nodes,
+                                                         want.nodes)):
+        raise AssertionError("the out-of-core index's k-mers or nodes "
+                             "differ from the build path's")
+    for name in ("hashes_to_index", "n_kmers", "ref_offsets", "frequencies",
+                 "allele_frequencies"):
+        a = np.asarray(got._file_column(name))
+        b = np.asarray(want._file_column(name))
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"the out-of-core index's {name} differ "
+                                 "from the build path's")
+    single = torch.from_numpy(built["counts"]).to(dev)
+    if not torch.equal(sh["counts"], single):
+        raise AssertionError("the shards' counts do not sum to the single "
+                             "table's")
+    kmers = hash_fasta_file(sh["fasta"], K, device=dev,
+                            include_reverse_complements=True)
+    expected = want.map_kmers(kmers, sh["n_nodes"])
+    if sh["served"].shape != expected.shape or not np.array_equal(
+            sh["served"], expected):
+        raise AssertionError("map_reads -T counts differ from map_kmers")
+    require_launches(launches, SHARDED_KERNELS, "sharded path")
+    if sh["rank_launches"]["sliding_hash"] < 1:
+        raise AssertionError("K1 was not launched by map_reads -T")
+    print(f"sharded path: the out-of-core index == the build path's "
+          f"({built['n_rows']} rows, every column); K2 in shard mode == "
+          f"plain (bit-exact) on {SHARD_RANGES} shards; the shards' counts "
+          f"sum to the single table's ({int(single.sum())} hits of "
+          f"{sum(s.shape[0] for s in built['queries'].segments)} read "
+          f"k-mers); map_reads -T == map_kmers ({int(expected.sum())} hits "
+          f"of {len(kmers)} read k-mers)", flush=True)
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -1993,9 +2226,9 @@ def main(argv=None) -> int:
         errs["sliding_hash"]["max_abs_err"],
         check_build(dev, built, build_launches, gen))
 
-    # the signature path scores against the build path's index; its packed
-    # table is not needed again
-    del built["tables"], built["queries"]
+    # the signature path scores against the build path's index (the
+    # sharded path's reference too); its packed table is not needed again
+    del built["tables"]
     built["index"]._invalidate_query_caches()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2011,11 +2244,31 @@ def main(argv=None) -> int:
         check_signature(dev, card, built, sig, signature_launches,
                         SWEEP_SAMPLE, FREQUENCY_SAMPLE, EXACT_VARIANTS,
                         np.random.default_rng(args.seed + 4)))
-    del built, sig
+    del sig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        sh = sharded_path(dev, card, args, built, workdir, gen)
+        # the ranks' launches (K1 hashes their reads); the launches that
+        # held K2 against its twin are not the path's
+        sharded_launches = dict(_kernels.launch_counts)
+        sharded_launches["packed_lookup"] -= sh["compare_launches"]
+        for name, n in sh["rank_launches"].items():
+            sharded_launches[name] += n
+        print(f"sharded path launches {sharded_launches}; peak device "
+              f"memory {torch.cuda.max_memory_allocated(dev)} bytes (this "
+              f"process) [{card}]", flush=True)
+        check_sharded(dev, built, sh, sharded_launches)
+    errs["packed_lookup"]["max_abs_err"] = max(
+        errs["packed_lookup"]["max_abs_err"], sh["k2_err"])
+    del built, sh
 
     kernels = kernel_entries(launches, hash_launches, lookup_launches, errs,
                              timed, {"build": build_launches,
-                                     "signature": signature_launches})
+                                     "signature": signature_launches,
+                                     "sharded": sharded_launches})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,17 +8,24 @@ make_unique_variant_kmers_kivs, sample_kmers_from_structural_variants,
 prune_flat_kmers, merge_flat_kmers, make_kmer_frequency_index,
 set_frequencies_using_other_index, set_allele_frequencies,
 create_counter_index, index, find_critical_paths,
-add_reverse_complements, count_kmers, make_graph, map_reads.
+add_reverse_complements, count_kmers, make_graph, map_reads, shard_index,
+make_index_out_of_core, reshard_checkpoint, convert_shards_to_packed.
 
     python -m graph_kmer_index_tpu_torch.cli map_reads -i INDEX -r READS \\
         -k 31 -R true -o counts.npy [--device cuda]
 
 A subcommand that touches a device takes ``--device`` (default ``cuda``;
 ``cpu`` runs each kernel's plain twin). Every true/false flag is read by
-``strict_bool``. ``shard_index``, ``make_index_out_of_core``,
-``reshard_checkpoint``, ``convert_shards_to_packed`` and ``map_reads
---table-shards`` need the multi-GPU and checkpoint modules, which are not
-ported yet, and raise with a pointer to ROADMAP.md.
+``strict_bool``.
+
+``map_reads -T PREFIX`` serves a shard checkpoint (``shard_index``,
+``make_index_out_of_core``, ``reshard_checkpoint``,
+``convert_shards_to_packed``) from its bucket-range shards, one rank per
+card, over a ``torch.distributed`` group: from ``--dist-init-method
+tcp://ADDRESS:PORT --dist-world-size N --dist-rank R``, else from a
+launcher's ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT`` (and
+``LOCAL_RANK``), else one rank on ``--device``. The checkpoint's shard
+count must divide the world; rank 0 writes the counts.
 
 The reference's ``--threads`` parallelism is fork() + POSIX shared memory
 + worklist splits (cli:105-153,574-623). Here worklists split per
@@ -392,12 +399,94 @@ def make_unique_variant_kmers_batched(args):
     make_unique_variant_kmers(args)
 
 
-def _not_ported(what: str):
-    def raise_not_ported(args):
-        raise NotImplementedError(
-            f"{what} is not ported yet (it needs the multi-GPU and "
-            "checkpoint modules); see ROADMAP.md")
-    return raise_not_ported
+def _process_group_args(args) -> dict:
+    """start_process_group's arguments: the --dist-* flags, else a
+    launcher's environment, else one rank on --device."""
+    import os
+
+    group = {"device": args.device}
+    if args.dist_init_method is not None:
+        group.update(init_method=args.dist_init_method,
+                     world_size=args.dist_world_size, rank=args.dist_rank)
+    elif {"RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"} <= set(
+            os.environ):
+        env = os.environ
+        group.update(
+            init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+            world_size=int(env["WORLD_SIZE"]), rank=int(env["RANK"]))
+        if "LOCAL_RANK" in env:
+            group["local_rank"] = int(env["LOCAL_RANK"])
+    return group
+
+
+def _map_reads_sharded(args) -> None:
+    """map_reads against a SHARDED table checkpoint: the table never
+    materializes whole. Each rank holds its bucket-range shard (read
+    straight from its own checkpoint file onto its card), hashes the
+    reads (K1), answers its data slice of the queries for the buckets it
+    owns, and the node counts merge with one all_reduce."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.checkpoint import load_shards, manifest_info
+    from .parallel.mesh import (build_mesh, coordinates, start_process_group,
+                                stop_process_group)
+    from .parallel.sharded import (KMER_PAD, make_count_step,
+                                   make_count_step_packed)
+    from .read_kmers import hash_fasta_file
+
+    info = manifest_info(args.table_shards)
+    n_table = info["n_table"]
+    started = not dist.is_initialized()
+    if started:
+        start_process_group(**_process_group_args(args))
+    try:
+        world = dist.get_world_size()
+        if world < n_table or world % n_table:
+            raise SystemExit(
+                f"{world} device(s) cannot host {n_table} table shards "
+                "evenly; re-shard the checkpoint or change the device count")
+        n_data = world // n_table
+        mesh = build_mesh(n_data, n_table)
+        shards = load_shards(args.table_shards, mesh=mesh)
+        dev = shards.row_nodes.device
+        kmers = hash_fasta_file(
+            args.reads, args.kmer_size, device=dev,
+            include_reverse_complements=args.include_reverse_complement)
+        n_kmers = len(kmers)
+        # n_nodes: explicit flag > manifest hint > the shards' max node
+        n_nodes = args.n_nodes
+        if not n_nodes and "max_node" in info:
+            n_nodes = info["max_node"] + 1
+        elif not n_nodes:
+            top = shards.row_nodes.max().to(torch.int64)
+            dist.all_reduce(top, op=dist.ReduceOp.MAX)
+            n_nodes = int(top) + 1
+        per = -(-max(1, n_kmers) // n_data)
+        d, _ = coordinates(mesh)
+        q = torch.full((per * n_data,), KMER_PAD, dtype=torch.int64,
+                       device=dev)
+        if n_kmers:
+            q[:n_kmers] = torch.cat(kmers.segments)
+        q = q[d * per:(d + 1) * per]
+        if info["kind"] == "packed":
+            step = make_count_step_packed(mesh, shards, n_nodes,
+                                          args.kmer_size, from_kmers=True)
+            counts = step(q, shards.records, shards.row_kmers,
+                          shards.row_nodes)
+        else:  # CSR layout (tables the packed records refuse, e.g. poly-A)
+            step = make_count_step(mesh, shards, n_nodes, args.kmer_size,
+                                   from_kmers=True)
+            counts = step(q, shards.starts, shards.sizes, shards.row_kmers,
+                          shards.row_nodes)
+        if dist.get_rank() == 0:
+            np.save(args.out_file_name, counts.cpu().numpy())
+            logging.info("Wrote node counts (%d nodes, %d read kmers, %d "
+                         "table shards x %d data shards) to %s", n_nodes,
+                         n_kmers, n_table, n_data, args.out_file_name)
+    finally:
+        if started:
+            stop_process_group()
 
 
 def map_reads(args) -> None:
@@ -405,14 +494,15 @@ def map_reads(args) -> None:
     external kmer_mapper package): FASTA reads -> window kmers -> node
     hit counts. ``--backend device``: hashed and looked up on
     ``--device`` without the query batch leaving it; ``native``: looked
-    up by the host C++ library."""
+    up by the host C++ library. With ``--table-shards``, served from a
+    shard checkpoint over a process group (:func:`_map_reads_sharded`)."""
     from .models.kmer_index import KmerIndex
     from .read_kmers import hash_fasta_file
 
     if args.table_shards:
-        _not_ported("map_reads --table-shards (sharded serving)")(args)
+        return _map_reads_sharded(args)
     if not args.kmer_index:
-        raise SystemExit("map_reads needs --kmer-index")
+        raise SystemExit("map_reads needs --kmer-index or --table-shards")
     index = KmerIndex.from_file(args.kmer_index, device=args.device)
     kmers = hash_fasta_file(
         args.reads, args.kmer_size, device=args.device,
@@ -422,6 +512,88 @@ def map_reads(args) -> None:
     np.save(args.out_file_name, counts)
     logging.info("Wrote node counts (%d nodes, %d read kmers) to %s",
                  n_nodes, len(kmers), args.out_file_name)
+
+
+def shard_index(args):
+    """Extra subcommand: split a whole index file into a shard checkpoint
+    (per-shard npz + manifest) for multi-card serving: the build-once /
+    serve-anywhere path. Host work: the index is read to the host."""
+    from .models.kmer_index import KmerIndex
+    from .parallel.checkpoint import save_shards
+    from .parallel.sharded import PackedTableShards, TableShards
+
+    index = KmerIndex.from_file(args.kmer_index, device="cpu")
+    if args.layout == "packed":
+        shards = PackedTableShards.from_index(index, args.n_shards)
+    else:
+        shards = TableShards.from_index(index, args.n_shards)
+    paths = save_shards(shards, args.out_prefix)
+    logging.info("Wrote %d files (%d %s shards) to %s*", len(paths),
+                 args.n_shards, args.layout, args.out_prefix)
+
+
+def make_index_out_of_core(args):
+    """Extra subcommand: genome-scale find+build with bounded memory
+    (bucket-range disk spills; parallel/oocbuild.py). The reference's
+    pipeline holds every row in memory at once
+    (command_line_interface.py:601-616), which cannot reach its own
+    --genome-size default of 3e9 on a 128 GB host; this one streams.
+    Produces a shard checkpoint servable by ``map_reads --table-shards``
+    or reassembled with ``oocbuild.index_from_shard_checkpoint``. Host
+    work (the find workers stay off the card)."""
+    from . import CriticalGraphPaths, Graph
+    from .parallel.oocbuild import find_and_build_out_of_core
+
+    graph = Graph.from_file(args.graph)
+    critical_paths = args.critical_graph_paths
+    if critical_paths is None:
+        logging.info("Making critical graph paths since not specified")
+        critical_paths = CriticalGraphPaths.from_graph(graph,
+                                                       args.kmer_size)
+    res = find_and_build_out_of_core(
+        graph, args.kmer_size, n_workers=args.n_threads,
+        workdir=args.workdir, modulo=args.hash_modulo,
+        n_ranges=args.n_ranges, critical_paths=critical_paths,
+        skip_frequencies=args.skip_frequencies,
+        delete_spills=not args.keep_spills,
+        checkpoint_dir=args.checkpoint_dir,
+        out_prefix=args.out_prefix, spill_cols=args.columns,
+        n_spill_passes=args.spill_passes,
+        max_variant_nodes=args.max_variant_nodes,
+        only_save_one_node_per_kmer=args.only_save_one_node_per_kmer)
+    logging.info("Out-of-core index done: %d rows in %d shards at %s*",
+                 res["total_rows"], res["n_table"], res["prefix"])
+    return res
+
+
+def convert_shards_to_packed(args):
+    """Extra subcommand: out-of-core CSR shard checkpoint -> out-of-core
+    PACKED shard checkpoint (the one-record-per-query serving layout,
+    ops/lookup.py) without ever materializing the whole table; see
+    parallel/oocbuild.py:convert_checkpoint_to_packed."""
+    from .parallel.oocbuild import convert_checkpoint_to_packed
+
+    res = convert_checkpoint_to_packed(
+        args.csr_prefix, args.workdir, out_prefix=args.out_prefix,
+        n_table=args.n_shards, n_workers=args.n_threads,
+        delete_spills=not args.keep_spills)
+    logging.info("Packed checkpoint: %d rows in %d shards at %s* "
+                 "(modulo2=%d)", res["total_rows"], res["n_table"],
+                 res["prefix"], res["modulo2"])
+    return res
+
+
+def reshard_checkpoint_command(args):
+    """Extra subcommand: merge adjacent bucket-range shards of a CSR
+    checkpoint (build with many ranges for bounded memory, serve with
+    one shard per card); parallel/oocbuild.py:reshard_checkpoint."""
+    from .parallel.oocbuild import reshard_checkpoint
+
+    res = reshard_checkpoint(args.in_prefix, args.out_prefix,
+                             args.n_shards)
+    logging.info("Resharded to %d shards (%d rows) at %s*",
+                 res["n_table"], res["total_rows"], res["prefix"])
+    return res
 
 
 def make_graph(args):
@@ -564,7 +736,9 @@ def build_argument_parser():
     s = subparsers.add_parser("map_reads")
     s.add_argument("-i", "--kmer-index", required=False, default=None)
     s.add_argument("-T", "--table-shards", required=False, default=None,
-                   help="a sharded checkpoint prefix (not ported yet)")
+                   help="serve from a sharded checkpoint prefix "
+                        "(parallel/checkpoint.py) instead of a whole "
+                        "index file")
     s.add_argument("-r", "--reads", required=True)
     s.add_argument("-k", "--kmer-size", type=int, default=31)
     s.add_argument("-n", "--n-nodes", type=int, default=0)
@@ -573,17 +747,67 @@ def build_argument_parser():
     s.add_argument("-b", "--backend", default="device",
                    choices=["device", "native"])
     s.add_argument("-o", "--out-file-name", required=True)
+    s.add_argument("--dist-init-method", default=None,
+                   help="with -T: the process group's tcp://ADDRESS:PORT")
+    s.add_argument("--dist-world-size", type=int, default=1)
+    s.add_argument("--dist-rank", type=int, default=0)
     _add_device(s)
     s.set_defaults(func=map_reads)
 
-    # the subcommands over the multi-GPU and checkpoint modules: accepted
-    # with any arguments, and refused
-    for name in ("shard_index", "make_index_out_of_core",
-                 "reshard_checkpoint", "convert_shards_to_packed"):
-        # no prefix character: "-i" and the like are taken as positionals
-        s = subparsers.add_parser(name, add_help=False, prefix_chars="\0")
-        s.add_argument("rest", nargs="*")
-        s.set_defaults(func=_not_ported(name))
+    s = subparsers.add_parser("shard_index")
+    s.add_argument("-i", "--kmer-index", required=True)
+    s.add_argument("-n", "--n-shards", type=int, required=True)
+    s.add_argument("-l", "--layout", default="packed",
+                   choices=["packed", "csr"])
+    s.add_argument("-o", "--out-prefix", required=True)
+    s.set_defaults(func=shard_index)
+
+    s = subparsers.add_parser("make_index_out_of_core")
+    s.add_argument("-g", "--graph", required=True)
+    s.add_argument("-c", "--critical_graph_paths", required=False,
+                   type=_load_pickled)
+    s.add_argument("-k", "--kmer-size", type=int, default=31)
+    s.add_argument("-d", "--workdir", required=True,
+                   help="spill + default output directory")
+    s.add_argument("-o", "--out-prefix", required=False, default=None,
+                   help="shard checkpoint prefix (default WORKDIR/index)")
+    s.add_argument("-t", "--n-threads", type=int, default=1)
+    s.add_argument("-m", "--hash-modulo", type=int, default=452930477)
+    s.add_argument("-n", "--n-ranges", type=int, default=32,
+                   help="bucket ranges == shards; peak memory ~rows/n")
+    s.add_argument("-v", "--max-variant-nodes", type=int, default=5)
+    s.add_argument("-O", "--only-save-one-node-per-kmer", type=strict_bool,
+                   default=False)
+    s.add_argument("--skip-frequencies", type=strict_bool, default=False)
+    s.add_argument("--keep-spills", type=strict_bool, default=False)
+    s.add_argument("--columns", default="full", choices=["full", "kn"],
+                   help="'kn' spills/stores only the serving columns "
+                        "(kmers+nodes): half the disk, counts/membership "
+                        "serving only")
+    s.add_argument("--spill-passes", type=int, default=1,
+                   help="find the graph N times, each pass spilling + "
+                        "building only 1/N of the bucket ranges: peak "
+                        "disk ~spill/N + checkpoint")
+    s.add_argument("--checkpoint-dir", required=False, default=None,
+                   help="also persist per-chunk find results; a killed "
+                        "run resumes without re-walking the graph")
+    s.set_defaults(func=make_index_out_of_core)
+
+    s = subparsers.add_parser("reshard_checkpoint")
+    s.add_argument("-i", "--in-prefix", required=True)
+    s.add_argument("-o", "--out-prefix", required=True)
+    s.add_argument("-n", "--n-shards", type=int, required=True)
+    s.set_defaults(func=reshard_checkpoint_command)
+
+    s = subparsers.add_parser("convert_shards_to_packed")
+    s.add_argument("-i", "--csr-prefix", required=True)
+    s.add_argument("-d", "--workdir", required=True)
+    s.add_argument("-o", "--out-prefix", required=False, default=None)
+    s.add_argument("-n", "--n-shards", type=int, default=None,
+                   help="packed shard count (default: same as CSR)")
+    s.add_argument("-t", "--n-threads", type=int, default=1)
+    s.add_argument("--keep-spills", type=strict_bool, default=False)
+    s.set_defaults(func=convert_shards_to_packed)
 
     s = subparsers.add_parser("make_graph")
     s.add_argument("-R", "--reference-fasta", required=True)

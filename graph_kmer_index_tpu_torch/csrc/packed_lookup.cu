@@ -20,7 +20,13 @@
 // "dup2" bucket (one k-mer twice), keeps its first row in lane 6.
 //
 // A block takes a tile of kThreads queries, one a thread:
-//   1. b = q mod modulo2; the record's two 16-byte loads.
+//   1. b = q mod modulo2; the record's two 16-byte loads. A table shard
+//      (bucket_base, m2_local) holds the records of the buckets
+//      [bucket_base, bucket_base + m2_local) only: a query whose bucket
+//      lies outside answers nothing (no count, false in membership mode),
+//      any other reads record b - bucket_base, and its deep rows start at
+//      the shard's own row offsets. The whole table is the shard
+//      (0, modulo2).
 //   2. Counts mode: a query whose bucket has size <= 2 and is no matched
 //      dup2 bucket is answered by the lanes: a lane hit adds one to the
 //      int64 count of its node (nodes >= n_nodes are dropped). Equal
@@ -102,6 +108,8 @@ __global__ void __launch_bounds__(kThreads)
 packed_lookup_kernel(const int4* __restrict__ records,
                      const long long* __restrict__ queries, long long n_q,
                      long long n_valid, unsigned long long modulo2,
+                     unsigned long long bucket_base,
+                     unsigned long long m2_local,
                      const long long* __restrict__ ks,
                      const long long* __restrict__ ns, long long n_rows,
                      unsigned long long* __restrict__ counts,
@@ -111,15 +119,19 @@ packed_lookup_kernel(const int4* __restrict__ records,
   const int lane = tid & 31;
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + tid;
 
-  const bool valid = i < n_valid;
+  bool valid = i < n_valid;
   unsigned long long key = 0;
   int4 r0 = make_int4(-1, -1, -1, -1);
   int4 r1 = r0;
   if (valid) {
     key = static_cast<unsigned long long>(__ldcs(queries + i));
-    const unsigned long long b = key % modulo2;
-    r0 = __ldg(records + 2 * b);
-    r1 = __ldg(records + 2 * b + 1);
+    // unsigned: a bucket below bucket_base wraps past m2_local
+    const unsigned long long b = key % modulo2 - bucket_base;
+    valid = b < m2_local;
+    if (valid) {
+      r0 = __ldg(records + 2 * b);
+      r1 = __ldg(records + 2 * b + 1);
+    }
   }
 
   // the lanes' answer; a pending query is one the bucket scan must finish
@@ -200,10 +212,13 @@ packed_lookup_kernel(const int4* __restrict__ records,
 
 // counts_mode != 0: counts mode (counts: n_nodes zeroed int64; hit_out
 // unused), else membership mode (hit_out: n_q bytes, every one written;
-// counts unused). ks and ns hold n_rows rows each.
+// counts unused). records holds m2_local records, those of the buckets
+// from bucket_base on; ks and ns hold n_rows rows each.
 extern "C" int gki_packed_lookup(const void* records, const void* queries,
                                  long long n_q, long long n_valid,
-                                 unsigned long long modulo2, const void* ks,
+                                 unsigned long long modulo2,
+                                 unsigned long long bucket_base,
+                                 unsigned long long m2_local, const void* ks,
                                  const void* ns, long long n_rows,
                                  void* counts, long long n_nodes,
                                  void* hit_out, int counts_mode,
@@ -216,14 +231,16 @@ extern "C" int gki_packed_lookup(const void* records, const void* queries,
     packed_lookup_kernel<true><<<blocks, kThreads, 0, st>>>(
         static_cast<const int4*>(records),
         static_cast<const long long*>(queries), n_q, n_valid, modulo2,
-        static_cast<const long long*>(ks), static_cast<const long long*>(ns),
-        n_rows, static_cast<unsigned long long*>(counts), n_nodes, nullptr);
+        bucket_base, m2_local, static_cast<const long long*>(ks),
+        static_cast<const long long*>(ns), n_rows,
+        static_cast<unsigned long long*>(counts), n_nodes, nullptr);
   } else {
     packed_lookup_kernel<false><<<blocks, kThreads, 0, st>>>(
         static_cast<const int4*>(records),
         static_cast<const long long*>(queries), n_q, n_valid, modulo2,
-        static_cast<const long long*>(ks), static_cast<const long long*>(ns),
-        n_rows, nullptr, 0, static_cast<uint8_t*>(hit_out));
+        bucket_base, m2_local, static_cast<const long long*>(ks),
+        static_cast<const long long*>(ns), n_rows, nullptr, 0,
+        static_cast<uint8_t*>(hit_out));
   }
   return static_cast<int>(cudaGetLastError());
 }

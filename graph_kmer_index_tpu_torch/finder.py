@@ -131,11 +131,15 @@ class DenseKmerFinder:
                  start_at_critical_path_number=None,
                  stop_at_critical_path_number=None,
                  whitelist=None, only_store_nodes=None,
-                 only_follow_nodes=None, use_device=None, device=None):
+                 only_follow_nodes=None, use_device=None, device="cuda"):
         """``use_device``/``device``: where the vectorized finalize hashes
         its tape. ``use_device=True`` hashes on ``device`` (required
         then); ``False`` on the host; ``None`` on ``device`` when it is a
-        CUDA device and the tape is large, else on the host."""
+        CUDA device and the tape has at least ``_DEVICE_TAPE_THRESHOLD``
+        bases, else on the host. The default device is the card, as the
+        JAX package picks the accelerator: a large tape on a machine
+        without one raises (pass ``device="cpu"`` to hash it on the
+        host)."""
         if only_store_variant_nodes:
             # dead flag in the reference too: kmer_finder.py:75 asserts
             # an undefined name (NameError) and no code ever applies the

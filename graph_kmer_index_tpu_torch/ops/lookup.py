@@ -47,12 +47,12 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .packed_layout import (DUP2, SCAN_CAP, _dup2_masks, internal_modulo,
+                            record_rows)
 
-SCAN_CAP = 256
 # the CythonKmerIndex.get caps that get_batched keeps by default
 DEFAULT_HIT_CAP = 10000
 DEFAULT_FREQUENCY_CAP = 20
-DUP2 = 1 << 30
 INT64_MAX = (1 << 63) - 1
 # The JAX package pads its sorted "present" k-mers with 2^63 (uint64) and
 # its query batches with a sentinel above every hash; neither fits int64,
@@ -69,42 +69,6 @@ _ULTRA_ROWS_PER_CHUNK = 1 << 24
 CLS_DEEP, CLS_ULTRA = 1, 2
 
 
-def _is_prime(n: int) -> bool:
-    if n < 2:
-        return False
-    for p in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
-        if n % p == 0:
-            return n == p
-    d, s = n - 1, 0
-    while d % 2 == 0:
-        d //= 2
-        s += 1
-    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
-        x = pow(a, d, n)
-        if x in (1, n - 1):
-            continue
-        for _ in range(s - 1):
-            x = x * x % n
-            if x == n - 1:
-                break
-        else:
-            return False
-    return True
-
-
-def internal_modulo(n_rows: int) -> int:
-    """Next prime >= max(67, 2*n_rows + 1)."""
-    m = max(67, 2 * n_rows + 1)
-    while not _is_prime(m):
-        m += 1
-    return m
-
-
-def record_rows(modulo2: int) -> int:
-    """Rows of the record tensor: modulo2 rounded up to 16, as in JAX."""
-    return -(-modulo2 // 16) * 16
-
-
 def _i32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 with the same 32 bits (no
     conversion of a value >= 2^31 to int32)."""
@@ -114,17 +78,6 @@ def _i32_bits(x: torch.Tensor) -> torch.Tensor:
 def _lane(g: torch.Tensor, c: int) -> torch.Tensor:
     """Lane ``c`` of gathered records as its uint32 value in int64."""
     return g[:, c].to(torch.int64) & _U32
-
-
-def _dup2_masks(is_second, sz_row, ks):
-    """(dup_b, dup_a): second / first row of every size-2 bucket that
-    holds the same k-mer twice (JAX lookup.py:_dup2_masks)."""
-    same = torch.zeros_like(is_second)
-    same[1:] = ks[1:] == ks[:-1]
-    dup_b = is_second & (sz_row == 2) & same
-    dup_a = torch.zeros_like(dup_b)
-    dup_a[:-1] = dup_b[1:]
-    return dup_b, dup_a
 
 
 class PackedTables(NamedTuple):
@@ -186,14 +139,29 @@ def build_packed(kmers: torch.Tensor, nodes: torch.Tensor,
 
 # -- the steps of K2's plain twin ---------------------------------------------
 
-def packed_decode_plain(records, queries, n_valid, modulo2, n_nodes=None):
+def _local_buckets(queries, modulo2, bucket_base, m2_local):
+    """(record row, owned) of each query in the table shard that holds the
+    buckets [bucket_base, bucket_base + m2_local): the whole table is the
+    shard (0, modulo2). A query the shard does not own reads a record it
+    must ignore."""
+    b = queries % modulo2 - bucket_base
+    owned = (b >= 0) & (b < m2_local)
+    return b.clamp(0, m2_local - 1), owned
+
+
+def packed_decode_plain(records, queries, n_valid, modulo2, n_nodes=None,
+                        bucket_base=0, m2_local=None):
     """The lanes' step of K2's plain twin, and its classifier. With
     ``n_nodes``: (int64 lane counts of length n_nodes, uint8 class per
     query); without: (bool lane hit per query, uint8 class per query).
-    Classes: 0 final, 1 deep, 2 ultra."""
+    Classes: 0 final, 1 deep, 2 ultra. A table shard (``bucket_base``,
+    ``m2_local``) answers only the queries whose bucket it holds; any
+    other is final and a miss."""
     n = queries.shape[0]
-    valid = torch.arange(n, device=queries.device) < n_valid
-    g = records[queries % modulo2]
+    row, owned = _local_buckets(queries, modulo2, bucket_base,
+                                modulo2 if m2_local is None else m2_local)
+    valid = (torch.arange(n, device=queries.device) < n_valid) & owned
+    g = records[row]
     lo, hi = queries & _U32, queries >> 32
     raw = (~_lane(g, 3)) & _U32
     dup2 = raw >= DUP2
@@ -215,9 +183,10 @@ def packed_decode_plain(records, queries, n_valid, modulo2, n_nodes=None):
                     + deep.to(torch.uint8) * CLS_DEEP)
 
 
-def _bucket_meta(tables: PackedTables, q: torch.Tensor):
-    """(start row, size) of each query's bucket, from its record."""
-    g = tables.records[q % tables.modulo2]
+def _bucket_meta(tables: PackedTables, q: torch.Tensor, bucket_base=0):
+    """(start row, size) of each query's bucket, from its record (in the
+    table shard from ``bucket_base`` on, which holds the bucket)."""
+    g = tables.records[q % tables.modulo2 - bucket_base]
     sz = ((~_lane(g, 3)) & _U32) & (DUP2 - 1)
     return _lane(g, 6), sz
 
@@ -246,18 +215,19 @@ def _bucket_hits_from_ranges(q: torch.Tensor, table_kmers: torch.Tensor,
     return torch.cat(hit_ids), torch.cat(hit_rows)
 
 
-def _scan_deep(tables: PackedTables, q: torch.Tensor):
+def _scan_deep(tables: PackedTables, q: torch.Tensor, bucket_base=0):
     """Scan the deep buckets (2 < size <= SCAN_CAP, or dup2) of queries
     ``q`` against the internally sorted rows. Returns (query index,
     matched row) pairs."""
-    return _bucket_hits_from_ranges(q, tables.ks, *_bucket_meta(tables, q))
+    return _bucket_hits_from_ranges(
+        q, tables.ks, *_bucket_meta(tables, q, bucket_base))
 
 
-def _ultra_matches(tables: PackedTables, uniq: torch.Tensor):
+def _ultra_matches(tables: PackedTables, uniq: torch.Tensor, bucket_base=0):
     """(unique index, matched row) pairs for unique ultra-deep query
     k-mers: every row of each one's bucket that holds it (JAX
     _ultra_rows, vectorised over the uniques in bounded chunks)."""
-    start, sz = _bucket_meta(tables, uniq)
+    start, sz = _bucket_meta(tables, uniq, bucket_base)
     ends = torch.cumsum(sz, 0).tolist()
     hit_ids, hit_rows = [], []
     lo = 0
@@ -301,15 +271,16 @@ def fixup_membership(hit, idx, q, present_sorted):
     return hit
 
 
-def finish_classes(tables: PackedTables, queries, out, cls, n_nodes=None):
+def finish_classes(tables: PackedTables, queries, out, cls, n_nodes=None,
+                   bucket_base=0):
     """The steps after the lanes' of K2's plain twin: ``out`` (lane counts
     or lane hits) completed for the queries that ``cls`` marks deep
     (buckets scanned by depth) or ultra (resolved once per unique
-    k-mer)."""
+    k-mer), in the table shard from ``bucket_base`` on."""
     deep = torch.nonzero(cls == CLS_DEEP).flatten()
     ultra = torch.nonzero(cls == CLS_ULTRA).flatten()
     if deep.numel():
-        ids, rows = _scan_deep(tables, queries[deep])
+        ids, rows = _scan_deep(tables, queries[deep], bucket_base)
         if n_nodes is None:
             out[deep[ids]] = True
         else:
@@ -317,7 +288,7 @@ def finish_classes(tables: PackedTables, queries, out, cls, n_nodes=None):
     if ultra.numel():
         q = queries[ultra]
         uniq, mult = torch.unique(q, return_counts=True)
-        ids, rows = _ultra_matches(tables, uniq)
+        ids, rows = _ultra_matches(tables, uniq, bucket_base)
         if n_nodes is None:
             sent = torch.full((1,), PRESENT_SENT, dtype=torch.int64,
                               device=q.device)
@@ -329,24 +300,36 @@ def finish_classes(tables: PackedTables, queries, out, cls, n_nodes=None):
 
 
 def packed_lookup_plain(tables: PackedTables, queries, n_valid,
-                        n_nodes=None):
+                        n_nodes=None, bucket_base=0, m2_local=None):
     """Plain twin of K2: the packed lookup of ``queries[:n_valid]`` (the
     rest is padding). With ``n_nodes``: int64 hit counts per node (nodes
     >= n_nodes dropped); without: bool membership per query. The lanes
     answer what they can (:func:`packed_decode_plain`), then
-    :func:`finish_classes` the rest."""
+    :func:`finish_classes` the rest.
+
+    Shard mode: ``tables`` is the table shard of the internal buckets
+    [bucket_base, bucket_base + m2_local) (its records, and its rows with
+    the deep buckets' start lanes counted from its own first row;
+    parallel.sharded.PackedTableShards), and a query whose bucket lies
+    outside answers nothing: no count, false. The defaults (0, modulo2)
+    are the whole table."""
     out, cls = packed_decode_plain(tables.records, queries, n_valid,
-                                   tables.modulo2, n_nodes)
-    return finish_classes(tables, queries, out, cls, n_nodes)
+                                   tables.modulo2, n_nodes, bucket_base,
+                                   m2_local)
+    return finish_classes(tables, queries, out, cls, n_nodes, bucket_base)
 
 
-def packed_lookup(tables: PackedTables, queries, n_valid, n_nodes=None):
+def packed_lookup(tables: PackedTables, queries, n_valid, n_nodes=None,
+                  bucket_base=0, m2_local=None):
     """Kernel K2 on CUDA tensors, the plain twin on CPU tensors; same
-    contract as :func:`packed_lookup_plain`. Queries are hashes: int64
-    values >= 0."""
+    contract as :func:`packed_lookup_plain`, shard mode included. Queries
+    are hashes: int64 values >= 0."""
     if queries.device.type == "cpu":
-        return packed_lookup_plain(tables, queries, n_valid, n_nodes)
+        return packed_lookup_plain(tables, queries, n_valid, n_nodes,
+                                   bucket_base, m2_local)
     records, modulo2 = tables.records, tables.modulo2
+    if m2_local is None:
+        m2_local = modulo2
     _kernels.check_cuda_tensor(records, "records", torch.int32, 2)
     _kernels.check_cuda_tensor(queries, "queries", torch.int64, 1)
     _kernels.check_cuda_tensor(tables.ks, "ks", torch.int64, 1)
@@ -354,8 +337,10 @@ def packed_lookup(tables: PackedTables, queries, n_valid, n_nodes=None):
     dev = queries.device
     if not records.device == tables.ks.device == tables.ns.device == dev:
         raise ValueError("the tables and the queries must share a device")
-    if records.shape[1] != 8 or records.shape[0] < modulo2:
-        raise ValueError(f"records must be (>= {modulo2}, 8), got "
+    if bucket_base < 0 or m2_local < 1:
+        raise ValueError(f"bad table shard ({bucket_base}, {m2_local})")
+    if records.shape[1] != 8 or records.shape[0] < m2_local:
+        raise ValueError(f"records must be (>= {m2_local}, 8), got "
                          f"{tuple(records.shape)}")
     if records.data_ptr() % 16:
         raise ValueError("records must be 16-byte aligned")
@@ -375,7 +360,8 @@ def packed_lookup(tables: PackedTables, queries, n_valid, n_nodes=None):
     with torch.cuda.device(dev):
         err = lib.gki_packed_lookup(
             records.data_ptr(), queries.data_ptr(), n,
-            max(0, min(n_valid, n)), modulo2, tables.ks.data_ptr(),
+            max(0, min(n_valid, n)), modulo2, bucket_base, m2_local,
+            tables.ks.data_ptr(),
             tables.ns.data_ptr(), tables.ks.shape[0],
             out.data_ptr() if counts_mode else None,
             n_nodes if counts_mode else 0,

@@ -77,12 +77,15 @@ class SnpKmerFinder:
                  only_store_nodes=None, skip_kmers_with_nodes=None,
                  only_save_one_node_per_kmer=False, reference=None,
                  variant_to_nodes=None, node_to_variants=None,
-                 haplotype_matrix=None, use_device=None, device=None):
+                 haplotype_matrix=None, use_device=None, device="cuda"):
         """``use_device``/``device``: where the sweep hashes the
         linear-reference tape, as in DenseKmerFinder. ``use_device=True``
         hashes on ``device`` (required then); ``False`` on the host;
         ``None`` on ``device`` when it is a CUDA device and the reference
-        has at least ``DEVICE_TAPE_THRESHOLD`` bases, else on the host."""
+        has at least ``DEVICE_TAPE_THRESHOLD`` bases, else on the host.
+        The default device is the card: a long reference on a machine
+        without one raises (pass ``device="cpu"`` to hash it on the
+        host)."""
         self.graph = graph
         self._use_device = use_device
         self._device = device

@@ -24,6 +24,10 @@ GRAPH = ({1: "AAAAAACTG", 2: "A", 3: "G", 4: "GC", 5: "T", 6: "C",
           7: [8, 9], 9: [10], 8: [10]},
          [1, 2, 4, 5, 7, 10])
 CPU = ["--device", "cpu"]
+# shard checkpoints that map_reads -T serves in the pipeline, and every
+# checkpoint it writes
+SERVED = ["shards_packed", "ooc_one", "ooc_packed"]
+CHECKPOINTS = SERVED + ["shards_csr", "ooc_index"]
 
 
 def _pipeline(pkg, cli, tmp, device):
@@ -109,6 +113,20 @@ def _pipeline(pkg, cli, tmp, device):
         run(["map_reads", "-i", kindex, "-r", p("reads.fa"), "-k", "5", "-R",
              "true", "-b", backend, "-o", p(f"counts_{backend}.npy")]
             + device)
+    # shard checkpoints, and the reads served from them (one rank here;
+    # the JAX package's mesh has 8 CPU devices)
+    run(["shard_index", "-i", kindex, "-n", "1", "-o", p("shards_packed")])
+    run(["shard_index", "-i", kindex, "-n", "2", "-l", "csr", "-o",
+         p("shards_csr")])
+    run(["make_index_out_of_core", "-g", g, "-k", "5", "-d", p("ooc"), "-m",
+         "4099", "-n", "4", "-t", "2", "-O", "true", "-o", p("ooc_index")])
+    run(["reshard_checkpoint", "-i", p("ooc_index"), "-o", p("ooc_one"),
+         "-n", "1"])
+    run(["convert_shards_to_packed", "-i", p("ooc_index"), "-d", p("pk"),
+         "-o", p("ooc_packed"), "-n", "1", "-t", "2"])
+    for prefix in SERVED:
+        run(["map_reads", "-T", p(prefix), "-r", p("reads.fa"), "-k", "5",
+             "-R", "true", "-o", p(f"counts_{prefix}.npy")] + device)
     return tmp
 
 
@@ -217,15 +235,88 @@ def test_every_jax_subcommand_is_registered():
         names(jax_cli.build_argument_parser())
 
 
-@pytest.mark.parametrize("argv", [
-    ["shard_index", "-i", "x", "-n", "2", "-o", "y"],
-    ["make_index_out_of_core", "-g", "x", "-d", "y"],
-    ["reshard_checkpoint", "-i", "x", "-o", "y", "-n", "2"],
-    ["convert_shards_to_packed", "-i", "x", "-d", "y"],
-    ["map_reads", "-T", "shards", "-r", "x", "-o", "y"]])
-def test_subcommands_not_ported_yet_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cli.run_argument_parser(argv)
+@pytest.mark.parametrize("prefix", CHECKPOINTS)
+def test_checkpoint_files_equal_jax(outputs, prefix):
+    """Every file of a shard checkpoint (shards, manifest; the sidecar
+    metadata of the out-of-core build) equals the JAX CLI's."""
+    jdir, tdir = outputs
+    names = sorted(f.name for f in tdir.iterdir()
+                   if f.name.startswith(prefix + "."))
+    assert names and names == sorted(
+        f.name for f in jdir.iterdir() if f.name.startswith(prefix + "."))
+    for name in names:
+        if name.endswith(".json"):
+            assert (tdir / name).read_text() == (jdir / name).read_text()
+            continue
+        with np.load(tdir / name) as got, np.load(jdir / name) as want:
+            assert sorted(got.files) == sorted(want.files), name
+            for key in want.files:
+                assert got[key].dtype == want[key].dtype, (name, key)
+                assert np.array_equal(got[key], want[key]), (name, key)
+
+
+@pytest.mark.parametrize("prefix", SERVED)
+def test_map_reads_sharded_counts_equal_jax(outputs, prefix):
+    """``map_reads -T`` on a one-rank gloo group: the node counts of the
+    JAX CLI on its 8-device mesh, and of the whole index."""
+    jdir, tdir = outputs
+    got = np.load(tdir / f"counts_{prefix}.npy")
+    assert got.sum() > 0
+    assert np.array_equal(got, np.load(jdir / f"counts_{prefix}.npy"))
+    assert np.array_equal(got, np.load(tdir / "counts_device.npy"))
+
+
+def test_map_reads_sharded_refuses_an_uneven_world(outputs):
+    """Two table shards cannot be served by one rank: the JAX message."""
+    _, tdir = outputs
+    with pytest.raises(SystemExit, match="cannot host 2 table shards"):
+        torch_cli.run_argument_parser(
+            ["map_reads", "-T", str(tdir / "shards_csr"), "-r",
+             str(tdir / "reads.fa"), "-k", "5", "-o",
+             str(tdir / "never.npy")] + CPU)
+    assert not (tdir / "never.npy").exists()
+
+
+def test_process_group_arguments(monkeypatch):
+    """--dist-* first, then a launcher's environment, then one rank."""
+    parser = torch_cli.build_argument_parser()
+    base = ["map_reads", "-T", "x", "-r", "y", "-o", "z"]
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    assert torch_cli._process_group_args(parser.parse_args(base)) == \
+        {"device": "cuda"}
+    monkeypatch.setenv("RANK", "3")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert torch_cli._process_group_args(parser.parse_args(base)) == {
+        "device": "cuda", "init_method": "tcp://localhost:29500",
+        "world_size": 4, "rank": 3, "local_rank": 1}
+    explicit = parser.parse_args(base + [
+        "--dist-init-method", "tcp://127.0.0.1:1234", "--dist-world-size",
+        "2", "--dist-rank", "1", "--device", "cpu"])
+    assert torch_cli._process_group_args(explicit) == {
+        "device": "cpu", "init_method": "tcp://127.0.0.1:1234",
+        "world_size": 2, "rank": 1}
+
+
+def test_out_of_core_flags_are_strict_booleans():
+    """``--keep-spills False`` is False here (the JAX CLI's ``type=bool``
+    reads it as True); any other word is refused."""
+    parser = torch_cli.build_argument_parser()
+    ooc = ["make_index_out_of_core", "-g", "x", "-d", "y"]
+    parsed = parser.parse_args(ooc + ["--keep-spills", "False",
+                                      "--skip-frequencies", "true", "-O",
+                                      "0"])
+    assert parsed.keep_spills is False and parsed.skip_frequencies is True
+    assert parsed.only_save_one_node_per_kmer is False
+    for argv in (ooc + ["--keep-spills", "no"],
+                 ["convert_shards_to_packed", "-i", "x", "-d", "y",
+                  "--keep-spills", "maybe"]):
+        with pytest.raises(SystemExit):
+            parser.parse_args(argv)
 
 
 @pytest.mark.parametrize("argv", [

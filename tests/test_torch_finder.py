@@ -200,11 +200,11 @@ def test_finalize_paths_match_jax(path, filters):
 def test_device_hashing_needs_an_explicit_device():
     seqs, edges, ref, k, _, _ = CASES["case1_row_order"]
     graph = Graph.from_dicts(seqs, edges, ref)
-    finder = DenseKmerFinder(graph, k=k, use_device=True)
+    finder = DenseKmerFinder(graph, k=k, use_device=True, device=None)
     finder.find()
     with pytest.raises(ValueError, match="explicit device"):
         finder._finalize(force_path="vector")
-    # left to itself a finder without a CUDA device hashes on the host
+    # with the default device (the card), a small tape hashes on the host
     auto = DenseKmerFinder(graph, k=k)
     auto.find()
     host = DenseKmerFinder(graph, k=k, use_device=False)
@@ -230,3 +230,32 @@ def test_whitelist_and_unsupported_flag():
     with pytest.raises(NotImplementedError):
         DenseKmerFinder(Graph.from_dicts(seqs, edges, ref), k=k,
                         only_store_variant_nodes=True)
+
+
+def test_default_device_is_the_card():
+    """The finder hashes on the card by default, as the JAX package picks
+    the accelerator: a tape below the threshold stays on the host, a tape
+    above it goes to the card, and raises on a machine without one."""
+    from graph_kmer_index_tpu_torch import finder as tfinder
+
+    seqs, edges, ref, k, _, _ = CASES["case1_row_order"]
+    small = DenseKmerFinder(Graph.from_dicts(seqs, edges, ref), k=k)
+    assert small._device == "cuda"
+    small.find()
+    small._finalize(force_path="vector")
+    rng = np.random.default_rng(3)
+    long = "".join(np.array(list("ACGT"))[
+        rng.integers(0, 4, tfinder._DEVICE_TAPE_THRESHOLD + 100)])
+    graph = Graph.from_dicts({1: long}, {}, [1])
+    on_card = DenseKmerFinder(graph, k=11)
+    on_card.find()
+    assert len(on_card._tape) >= tfinder._DEVICE_TAPE_THRESHOLD
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        on_card._finalize(force_path="vector")
+    on_host = DenseKmerFinder(graph, k=11, device="cpu")
+    on_host.find()
+    on_host._finalize(force_path="vector")
+    native = DenseKmerFinder(graph, k=11)
+    native.find()
+    for a, b in zip(on_host._results(), native._results(), strict=True):
+        assert np.array_equal(a, b)

@@ -88,6 +88,59 @@ def test_port_lookup_runs_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_SHARDED = """
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["graph_kmer_index_tpu"] = None
+import numpy as np, torch
+from graph_kmer_index_tpu_torch import KmerIndex
+from graph_kmer_index_tpu_torch.parallel import checkpoint, mesh, oocbuild
+from graph_kmer_index_tpu_torch.parallel.sharded import (
+    KMER_PAD, make_count_step_packed)
+from graph_kmer_index_tpu_torch.utils.synthetic import random_snp_graph
+graph, _ = random_snp_graph(3000, 30, seed=2, indel_fraction=0.2)
+with tempfile.TemporaryDirectory() as wd:
+    oocbuild.find_and_build_out_of_core(graph, 11, n_workers=2, workdir=wd,
+                                        modulo=1009, n_ranges=3)
+    index = oocbuild.index_from_shard_checkpoint(wd + "/index", "cpu")
+    packed = oocbuild.convert_checkpoint_to_packed(wd + "/index", wd,
+                                                   n_table=1)
+    mesh.start_process_group("cpu")
+    m = mesh.build_mesh(1, 1)
+    shards = checkpoint.load_shards(packed["prefix"], mesh=m)
+    step = make_count_step_packed(m, shards, graph.n_nodes(), 11,
+                                  from_kmers=True)
+    q = torch.cat([index.kmers, torch.full((3,), KMER_PAD)])
+    counts = step(q, shards.records, shards.row_kmers, shards.row_nodes)
+    mesh.stop_process_group()
+assert np.array_equal(counts.numpy(), index.map_kmers(index.kmers,
+                                                      graph.n_nodes()))
+print("ok")
+"""
+
+
+def test_sharded_path_runs_without_jax():
+    """The out-of-core build (spawned pool workers), the packed
+    conversion and a mesh serve of the checkpoint run with jax and the JAX
+    package unimportable."""
+    proc = subprocess.run([sys.executable, "-c", _SHARDED], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_out_of_core_workers_import_numpy_alone():
+    """The out-of-core build's modules, which its pool workers import,
+    do not import torch."""
+    probe = ("import sys; import graph_kmer_index_tpu_torch.parallel."
+             "oocbuild, graph_kmer_index_tpu_torch.parallel.host_pool; "
+             "print('torch' in sys.modules)")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+graph_kmer_index_tpu\b"
     r"(?!_torch)|from\s+graph_kmer_index_tpu\b(?!_torch))", re.M)

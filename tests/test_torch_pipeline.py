@@ -61,8 +61,13 @@ def test_map_reads_cli_rejects_unported_options(tmp_path):
     index_path, reads_path = _fixture(tmp_path, 15)
     base = ["map_reads", "-r", reads_path, "-o", str(tmp_path / "o.npy"),
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cli.run_argument_parser(base + ["-T", "shards"])
+    # -T is ported: a prefix that is no shard checkpoint is refused before
+    # a process group starts, and so is a call with neither -i nor -T
+    with pytest.raises(FileNotFoundError, match="manifest"):
+        torch_cli.run_argument_parser(base + ["-T", str(tmp_path / "no")])
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(SystemExit, match="--kmer-index or --table-shards"):
+        torch_cli.run_argument_parser(base)
     # the native backend is ported: it gives the device backend's counts
     mapped = base + ["-i", index_path, "-k", "15"]
     torch_cli.run_argument_parser(mapped + ["-b", "native"])

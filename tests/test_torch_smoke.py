@@ -554,3 +554,55 @@ def test_smoke_names_the_replaced_code(attr, function):
     path, line = getattr(_smoke(), attr).rsplit(":", 1)
     source = (ROOT / path).read_text().splitlines()
     assert source[int(line) - 1].startswith(function)
+
+
+def test_smoke_sharded_phase_on_cpu(tmp_path, capsys):
+    """The sharded phase at a tiny size over a tiny build phase: the
+    out-of-core build -> the index back -> packed shards served by K2's
+    shard mode -> reshard -> map_reads -T on a spawned gloo rank, and its
+    checks."""
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    args = cs.parse_args(["--build-bases", "60000", "--build-variants",
+                          "240", "--build-reads", "300"])
+    cs.require_native()
+    built = cs.build_path(dev, "CPU", args, n_workers=2, mp_context=None,
+                          modulo=100_003)
+    _kernels.reset_launch_counts()
+    sh = cs.sharded_path(dev, "CPU", args, built, tmp_path, gen, n_workers=2,
+                         mp_context=None, modulo=100_003)
+    assert sh["ooc"]["total_rows"] == built["n_rows"]
+    assert sh["k2_err"] == 0 and sh["served"].sum() > 0
+    assert sh["rank_launches"]["sliding_hash"] == 0  # a CPU rank: twins
+    # a CPU tensor takes the twins: nothing was launched, and the check
+    # says so
+    with pytest.raises(AssertionError, match="sliding_hash was not launched "
+                       "by the sharded path"):
+        cs.check_sharded(dev, built, sh, dict(_kernels.launch_counts))
+    launches = dict.fromkeys(_kernels.launch_counts, 0)
+    launches.update(sliding_hash=1, packed_lookup=4)
+    with pytest.raises(AssertionError, match="K1 was not launched by "
+                       "map_reads -T"):
+        cs.check_sharded(dev, built, sh, launches)
+    sh["rank_launches"]["sliding_hash"] = 2
+    cs.check_sharded(dev, built, sh, launches)
+    sh["counts"][5] += 1
+    with pytest.raises(AssertionError, match="do not sum"):
+        cs.check_sharded(dev, built, sh, launches)
+    sh["counts"][5] -= 1
+    sh["served"][3] += 1
+    with pytest.raises(AssertionError, match="map_reads -T counts"):
+        cs.check_sharded(dev, built, sh, launches)
+    sh["served"][3] -= 1
+    sh["index"].n_kmers[7] += 1
+    with pytest.raises(AssertionError, match="n_kmers differ"):
+        cs.check_sharded(dev, built, sh, launches)
+    out = capsys.readouterr().out
+    for stage in ("out-of-core build (find_and_build_out_of_core)",
+                  "index_from_shard_checkpoint onto the card",
+                  "convert_shards_to_packed", "reshard_checkpoint to 1 "
+                  "shard(s)", "map_reads -T (1 rank(s), spawned)"):
+        assert f"stage {stage}: " in out
+    assert "sharded path: the out-of-core index == the build path's" in out

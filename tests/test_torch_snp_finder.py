@@ -249,7 +249,8 @@ def test_device_selection():
         tsnp.sliding_window_hashes = real
     assert calls, "a CPU device with use_device=None hashes on the host"
     with pytest.raises(ValueError, match="explicit device"):
-        tgki.SnpKmerFinder(graph, k=3, use_device=True).find_kmers()
+        tgki.SnpKmerFinder(graph, k=3, use_device=True,
+                           device=None).find_kmers()
 
 
 def test_long_reference_against_the_jax_device_branch():
@@ -288,3 +289,24 @@ def test_long_reference_against_the_jax_device_branch():
     _assert_flat_equal(got, want)
     assert len(got._hashes) > 250 and tfinder.kmers_found == \
         jfinder.kmers_found
+
+
+def test_default_device_is_the_card():
+    """The sweep hashes on the card by default: a reference below
+    DEVICE_TAPE_THRESHOLD stays on the host; a longer one goes to the card,
+    and raises on a machine without one. ``device="cpu"`` hashes it on the
+    host."""
+    small = tgki.SnpKmerFinder(tgki.Graph.from_dicts(*FLAGS), k=3)
+    assert small._device == "cuda"
+    assert len(small.find_kmers()._hashes) > 0
+    rng = np.random.default_rng(5)
+    n = tgki.SnpKmerFinder.DEVICE_TAPE_THRESHOLD + 100
+    seq = "".join(np.array(list("ACGT"))[rng.integers(0, 4, n)])
+    graph = tgki.Graph.from_dicts({1: seq}, {}, [1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgki.SnpKmerFinder(graph, k=31, spacing=4001).find_kmers()
+    got = tgki.SnpKmerFinder(graph, k=31, spacing=4001,
+                             device="cpu").find_kmers()
+    want = jgki.SnpKmerFinder(jgki.Graph.from_dicts({1: seq}, {}, [1]),
+                              k=31, spacing=4001).find_kmers()
+    _assert_flat_equal(got, want)
