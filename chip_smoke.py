@@ -160,13 +160,42 @@
    were launched. Prints a stage line each (with the find, spill-write
    and shard-build seconds and the spill and checkpoint bytes).
 
+14. The sharded-build phase (its launches counted from 0 as well; those of
+   its checks taken off, those of the dry run's ranks added), over the
+   build path's index, in a one-rank process group (NCCL; one card, and
+   NCCL refuses two ranks on one card, so the multi-rank exchange is the
+   CPU tests' to hold). The index's rows in a seeded random order (the
+   finder's emission order is hash-random) -> build_packed_shards_sharded
+   (inside device_trace; the trace's bytes printed) -> the packed count
+   and membership steps from k-mers (K2 in shard mode) on the build path's
+   read k-mers -> build_table_shards_sharded at modulo 452,930,477 -> the
+   CSR count step -> frequencies_sharded -> count_min_sketch_sharded (three
+   primes near 10^6), merge_flat_kmers_all_gather (the index's four
+   columns), run_sharded_function, map_kmers_sharded and has_kmers_sharded
+   -> save_shards of the CSR shard on the mesh and load_shards back ->
+   entry()'s forward (K1) -> dryrun_multichip on every card, spawned.
+   Checks, each raising: the packed shard equals lookup.build_packed of
+   the same rows, record for record and row for row; the steps' counts
+   equal the build path's and their membership K2's on build_packed's
+   table; K2 in shard mode equals its twin; the CSR shard's sizes equal
+   the index's, and its starts where a bucket holds rows; frequencies
+   (un-permuted) equal the index's; the sketch equals bincount, the merge
+   its inputs, run_sharded_function the function applied whole, the
+   sharded map/has the index's; the checkpoint reads back equal; entry()'s
+   forward equals the toy index's map_kmers on the same valid windows and
+   K1 its twin on those reads; every dry-run rank passes; K1 and K2 were
+   launched. Prints a stage line each, Timings.report() of the stages and
+   the phase's peak device memory.
+
 Any failed check raises before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import socket
 import subprocess
 import sys
@@ -183,17 +212,19 @@ from graph_kmer_index_tpu_torch import (  # noqa: E402
     CriticalGraphPaths, DeviceReadKmers, IndexBundle, KmerIndex,
     ReferenceKmerIndex, ReverseKmerIndex, SnpKmerFinder,
     UniqueVariantKmersFinder, VariantNodesIndex, VcfVariants,
-    build_graph_from_vcf, hash_fasta_file, native)
+    build_graph_from_vcf, entry, hash_fasta_file, native)
 from graph_kmer_index_tpu_torch.hashing import (  # noqa: E402
     kmer_hashes_to_reverse_complement_hash, sliding_window_hashes)
 from graph_kmer_index_tpu_torch.ops import _kernels  # noqa: E402
 from graph_kmer_index_tpu_torch.ops import (  # noqa: E402
     encode, lookup, primitives)
 from graph_kmer_index_tpu_torch.parallel import (  # noqa: E402
-    checkpoint, oocbuild, sharded)
+    checkpoint, mesh, oocbuild, sharded)
 from graph_kmer_index_tpu_torch.parallel.host_pool import (  # noqa: E402
     find_kmers_parallel, find_kmers_parallel_device)
 from graph_kmer_index_tpu_torch.utils import synthetic  # noqa: E402
+from graph_kmer_index_tpu_torch.utils.profiling import (  # noqa: E402
+    Timings, device_trace)
 
 K1_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_hash.cu"
 K2_SOURCE = "graph_kmer_index_tpu_torch/csrc/packed_lookup.cu"
@@ -218,6 +249,9 @@ LOOKUP_KERNELS = ("gather_loop", "rmw_loop", "bcast_cmp")
 BUILD_KERNELS = ("sliding_hash", "packed_lookup")
 SIGNATURE_KERNELS = ("sliding_hash", "packed_lookup")
 SHARDED_KERNELS = ("sliding_hash", "packed_lookup")
+SHARDED_BUILD_KERNELS = ("sliding_hash", "packed_lookup")
+# the sharded-build phase's count-min sketch: three primes near 10^6
+CMS_MODULOS = (999_983, 1_000_003, 1_000_033)
 # the sharded phase: the out-of-core build's bucket ranges (table shards),
 # and the queries of each shard that K2 in shard mode is held against its
 # twin on (owned read k-mers, then random hashes that mostly miss)
@@ -2072,6 +2106,228 @@ def check_sharded(dev, built, sh, launches) -> None:
           f"of {len(kmers)} read k-mers)", flush=True)
 
 
+class CheckLaunches:
+    """The kernel launches that checks make (a kernel held against its
+    twin, an expected value computed through the kernels): each ``with
+    checks():`` block's launches are tallied in ``counts``, to be taken
+    off the path's."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(_kernels.launch_counts, 0)
+
+    @contextlib.contextmanager
+    def __call__(self):
+        before = dict(_kernels.launch_counts)
+        try:
+            yield
+        finally:
+            for name, n in _kernels.launch_counts.items():
+                self.counts[name] += n - before[name]
+
+
+def require_equal(got, want, what: str) -> None:
+    """Raise unless two tensors hold the same values (dtypes may differ;
+    equal ones are compared as they are, without a widened copy)."""
+    if got.dtype != want.dtype:
+        got, want = got.to(torch.int64), want.to(torch.int64)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what}: {tuple(got.shape)} != "
+                             f"{tuple(want.shape)} or values differ")
+
+
+def sharded_build_path(dev, card, built, workdir, gen,
+                       modulo=REF_MODULO) -> dict:
+    """The sharded-build phase over the build path's index, through the
+    functions a user calls, each stage's checks raising: its rows in a
+    seeded emission order -> build_packed_shards_sharded (equal to
+    build_packed, record for record; served by the packed steps, K2 in
+    shard mode) -> build_table_shards_sharded at ``modulo`` (equal to the
+    index's bucket layout; served by the CSR step) -> frequencies_sharded
+    (equal to the index's) -> map/has_kmers_sharded,
+    count_min_sketch_sharded, merge_flat_kmers_all_gather and
+    run_sharded_function -> save_shards on the mesh and load_shards back
+    -> entry()'s forward against the toy index, and dryrun_multichip on
+    every card. One rank (the card's machine has one card): the group is
+    started here and stopped at the end. Returns the phase's launches (the
+    checks' taken off, the dry-run ranks' added), its timings and its
+    K2-against-twin error."""
+    st = Stages(dev, card)
+    timings = Timings()
+    checks = CheckLaunches()
+    index, n_nodes = built["index"], built["n_nodes"]
+    queries = torch.cat(built["queries"].segments)
+    single = torch.from_numpy(built["counts"]).to(dev)
+    n = index.kmers.shape[0]
+    _kernels.reset_launch_counts()
+
+    def stage(name, fn, *args, **kw):
+        with timings.span(name):
+            return st.run(name, fn, *args, **kw)
+
+    mesh.start_process_group(dev.type)
+    try:
+        m = mesh.build_mesh(1, 1)
+        perm = stage("rows in emission order (randperm)",
+                     torch.randperm, n, device=dev, generator=gen)
+        kmers, nodes = index.kmers[perm], index.nodes[perm]
+
+        with device_trace(str(Path(workdir) / "trace")) as trace:
+            shard, rows = stage("build_packed_shards_sharded",
+                                sharded.build_packed_shards_sharded,
+                                kmers, nodes)
+        trace_bytes = os.path.getsize(trace.path)
+        with checks():
+            want = lookup.build_packed(kmers, nodes, shard.modulo2)
+            require_equal(shard.records[0], want.records,
+                          "sharded packed records != build_packed")
+            if rows != n or shard.max_scan != want.max_sz:
+                raise AssertionError("sharded packed rows or depth differ")
+            require_equal(shard.row_kmers[0, :rows], want.ks,
+                          "sharded packed rows' k-mers")
+            require_equal(shard.row_nodes[0, :rows], want.ns,
+                          "sharded packed rows' nodes")
+            want_hit = lookup.packed_lookup(want, queries, queries.shape[0])
+            del want
+        cols = (shard.records, shard.row_kmers, shard.row_nodes)
+        k2_before = _kernels.launch_counts["packed_lookup"]
+        counts = stage("packed count step (from k-mers)",
+                       sharded.make_count_step_packed(
+                           m, shard, n_nodes, K, from_kmers=True),
+                       queries, *cols)
+        hit = stage("packed member step (from k-mers)",
+                    sharded.make_member_step_packed(m, shard, K,
+                                                    from_kmers=True),
+                    queries, *cols)
+        step_k2 = _kernels.launch_counts["packed_lookup"] - k2_before
+        require_equal(counts, single, "packed step counts != map_kmers")
+        require_equal(hit, want_hit, "packed step membership != has_kmers")
+        with checks():
+            tables = sharded.shard_tables(shard, 0, *cols, dev)
+            k2_err = check_shard_k2(dev, shard, 0, tables, queries, n_nodes,
+                                    gen)
+        del shard, tables, cols, want_hit, hit
+
+        cshard, rows = stage("build_table_shards_sharded",
+                             sharded.build_table_shards_sharded,
+                             kmers, nodes, modulo)
+        sizes, starts = cshard.sizes[0], cshard.starts[0]
+        require_equal(sizes, index.n_kmers, "sharded CSR sizes != n_kmers")
+        full = sizes > 0
+        require_equal(starts[full], index.hashes_to_index[full],
+                      "sharded CSR starts != the index's")
+        if rows != n:
+            raise AssertionError(f"{rows} rows in the CSR shard, {n} built")
+        counts = stage("CSR count step (from k-mers)",
+                       sharded.make_count_step(m, cshard, n_nodes, K,
+                                               from_kmers=True),
+                       queries, cshard.starts, cshard.sizes,
+                       cshard.row_kmers, cshard.row_nodes)
+        require_equal(counts, single, "CSR step counts != map_kmers")
+        del full
+
+        refs = index.ref_offsets[perm]
+        freqs = stage("frequencies_sharded", sharded.frequencies_sharded,
+                      kmers, refs)
+        unpermuted = torch.empty_like(freqs)
+        unpermuted[perm] = freqs
+        require_equal(unpermuted, index.frequencies,
+                      "frequencies_sharded != the index's frequencies")
+        del perm, kmers, nodes, refs, freqs, unpermuted
+
+        sketch = stage("count_min_sketch_sharded",
+                       sharded.count_min_sketch_sharded, queries,
+                       CMS_MODULOS)
+        require_equal(sketch, torch.cat([torch.bincount(queries % p,
+                                                        minlength=p)
+                                         for p in CMS_MODULOS]),
+                      "count_min_sketch_sharded != bincount")
+        columns = (index.kmers, index.nodes, index.ref_offsets,
+                   index.allele_frequencies)
+        merged = stage("merge_flat_kmers_all_gather",
+                       sharded.merge_flat_kmers_all_gather, None, columns)
+        for got, col in zip(merged, columns):
+            if not torch.equal(got, col):
+                raise AssertionError("merge_flat_kmers_all_gather != its "
+                                     "inputs")
+        del merged
+        mapped = stage("run_sharded_function", sharded.run_sharded_function,
+                       lambda a: a * 2 + 1, 1, [queries])
+        require_equal(mapped, queries * 2 + 1,
+                      "run_sharded_function != the function whole")
+        del mapped
+        got = stage("map_kmers_sharded", sharded.map_kmers_sharded, index,
+                    queries, n_nodes)
+        require_equal(torch.from_numpy(got), single.cpu(),
+                      "map_kmers_sharded != map_kmers")
+        got = stage("has_kmers_sharded", sharded.has_kmers_sharded, index,
+                    queries)
+        with checks():
+            want = index.has_kmers(queries)
+        if not np.array_equal(got, want):
+            raise AssertionError("has_kmers_sharded != has_kmers")
+        index._invalidate_query_caches()
+
+        prefix = str(Path(workdir) / "sharded_csr")
+        stage("save_shards on the mesh (CSR shard)",
+              checkpoint.save_shards, cshard, prefix, mesh=m)
+        loaded = stage("load_shards onto the mesh", checkpoint.load_shards,
+                       prefix, mesh=m)
+        for name in ("starts", "sizes", "row_kmers", "row_nodes"):
+            require_equal(getattr(loaded, name), getattr(cshard, name),
+                          f"checkpoint round trip: {name}")
+        ckpt_bytes = disk_bytes(prefix)
+        del cshard, loaded
+
+        fn, (reads,) = stage("entry() (toy index and reads)",
+                             entry.entry, dev)
+        k1_before = _kernels.launch_counts["sliding_hash"]
+        toy_counts = stage("entry()'s forward", fn, reads)
+        forward_k1 = _kernels.launch_counts["sliding_hash"] - k1_before
+        with checks():
+            toy, n_toy, _, _ = entry.toy_setup(K, dev)
+            tape = reads.reshape(-1).to(torch.int8)
+            hashes = encode.sliding_hashes_plain(tape, K)
+            k1_err = assert_equal(encode.sliding_hashes(tape, K), hashes,
+                                  "K1 on entry()'s reads")
+            valid = (torch.arange(tape.shape[0], device=dev)
+                     % reads.shape[1]) <= reads.shape[1] - K
+            want = toy.map_kmers(hashes[valid], n_toy)
+        if not np.array_equal(toy_counts.cpu().numpy(), want):
+            raise AssertionError("entry()'s forward != the toy index's "
+                                 "map_kmers")
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+        rank_launches = stage(f"dryrun_multichip({n_cards}), spawned",
+                              entry.dryrun_multichip, n_cards, dev.type)
+    finally:
+        mesh.stop_process_group()
+    launches = {name: count - checks.counts[name] + rank_launches[name]
+                for name, count in _kernels.launch_counts.items()}
+    print(f"sharded-build phase: {n} rows; build_packed_shards_sharded == "
+          f"build_packed (records, rows); the packed and CSR steps' counts "
+          f"== map_kmers ({int(single.sum())} hits); CSR shard == the "
+          f"index's layout; frequencies_sharded == the index's; map/has_"
+          f"kmers_sharded, the sketch, the merge and run_sharded_function "
+          f"hold; save/load round trip of {ckpt_bytes} bytes; entry() == "
+          f"map_kmers ({int(toy_counts.sum())} hits); dryrun_multichip("
+          f"{n_cards}) passed; trace {trace_bytes} bytes", flush=True)
+    print("timings of the phase (Timings.report):\n" + timings.report(),
+          flush=True)
+    return dict(launches=launches, rank_launches=rank_launches,
+                step_k2=step_k2, forward_k1=forward_k1, k2_err=k2_err,
+                k1_err=k1_err, trace_bytes=trace_bytes, timings=timings)
+
+
+def check_sharded_build(sb) -> None:
+    """The sharded-build phase launched K1 and K2: K2 in shard mode in
+    each of the two packed steps, K1 in entry()'s forward."""
+    require_launches(sb["launches"], SHARDED_BUILD_KERNELS,
+                     "sharded-build path")
+    if sb["step_k2"] < 2:
+        raise AssertionError("the packed steps did not launch K2")
+    if sb["forward_k1"] < 1:
+        raise AssertionError("entry()'s forward did not launch K1")
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -2263,12 +2519,34 @@ def main(argv=None) -> int:
         check_sharded(dev, built, sh, sharded_launches)
     errs["packed_lookup"]["max_abs_err"] = max(
         errs["packed_lookup"]["max_abs_err"], sh["k2_err"])
-    del built, sh
+    del sh
+
+    # the sharded builds over the build path's index; its query caches
+    # (the sharded phase's packed table) are freed first
+    built["index"]._invalidate_query_caches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        sb = sharded_build_path(dev, card, built, workdir, gen)
+    print(f"sharded-build phase, stages and checks: "
+          f"{time.perf_counter() - t0:.6f} s [{card}]", flush=True)
+    sharded_build_launches = sb["launches"]
+    print(f"sharded-build path launches {sharded_build_launches} (the "
+          f"dry-run ranks' {sb['rank_launches']} included); peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev)} bytes (this "
+          f"process) [{card}]", flush=True)
+    check_sharded_build(sb)
+    for name, key in (("sliding_hash", "k1_err"), ("packed_lookup",
+                                                   "k2_err")):
+        errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], sb[key])
+    del built, sb
 
     kernels = kernel_entries(launches, hash_launches, lookup_launches, errs,
                              timed, {"build": build_launches,
                                      "signature": signature_launches,
-                                     "sharded": sharded_launches})
+                                     "sharded": sharded_launches,
+                                     "sharded_build": sharded_build_launches})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..containers import Counter, HashTable, MultiValueHashTable
 from ..device import resolve_device
@@ -582,10 +583,15 @@ class KmerIndex:
         return hit.cpu().numpy()
 
     def has_kmers_parallel(self, kmers, n_threads) -> np.ndarray:
-        """Membership, the queries cut into ``n_threads`` parts that are
-        answered one after another on the index's device (the reference
-        forks processes, the JAX package shards over a mesh; the answer
-        is the same)."""
+        """Membership, the queries cut into ``n_threads`` parts (the
+        reference forks processes, the JAX package shards over a mesh; the
+        answer is the same). Inside a started process group the parts go
+        to the ranks (parallel.sharded.has_kmers_sharded, every rank
+        holding this index); outside one they are answered one after
+        another on the index's device."""
+        if dist.is_initialized():
+            from ..parallel.sharded import has_kmers_sharded
+            return has_kmers_sharded(self, kmers, n_shards=n_threads)
         q = self._queries(kmers)
         parts = [self.device_index.has_kmers(c)
                  for c in torch.tensor_split(q, max(1, int(n_threads)))]

@@ -93,17 +93,30 @@ def build_packed(kmers: torch.Tensor, nodes: torch.Tensor,
                  modulo2: int) -> PackedTables:
     """Record table + bucket-sorted rows (JAX _packed_stage1,
     _dup2_masks and _packed_records, assembled as _build_packed)."""
-    dev = kmers.device
-    n = kmers.shape[0]
-    rows = record_rows(modulo2)
-    rec = torch.full((rows * 8,), -1, dtype=torch.int32, device=dev)
-    if n == 0:
-        return PackedTables(rec.view(rows, 8), kmers.to(torch.int64),
-                            nodes.to(torch.int64), modulo2, 0, 0.0)
     bs, perm = torch.sort(kmers % modulo2, stable=True)
     ks = kmers[perm]
     ns = nodes[perm].to(torch.int64)
     del perm
+    rec, max_sz, deep_frac, _ = packed_records(bs, ks, ns,
+                                               record_rows(modulo2))
+    return PackedTables(rec, ks, ns, modulo2, max_sz, deep_frac)
+
+
+def packed_records(bs: torch.Tensor, ks: torch.Tensor, ns: torch.Tensor,
+                   n_records: int):
+    """The record table of rows sorted by bucket: ``bs`` each row's
+    bucket, counted from the table's first record (the whole table, or a
+    table shard of parallel.sharded with ``n_records`` = m2_local), ``ks``
+    and ``ns`` its k-mer and int64 node. A deep bucket's start lane holds
+    its first row's position in these rows. ``bs`` is consumed: it is
+    overwritten in place, as no caller reads it again. Returns (int32 records
+    ``(n_records, 8)``, deepest bucket's size (0 without rows), share of
+    rows in deep or dup2 buckets, whether a dup2 bucket exists)."""
+    dev = ks.device
+    n = ks.shape[0]
+    rec = torch.full((n_records * 8,), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return rec.view(n_records, 8), 0, 0.0, False
     is_first = torch.ones(n, dtype=torch.bool, device=dev)
     is_first[1:] = bs[1:] != bs[:-1]
     is_second = torch.zeros_like(is_first)
@@ -113,28 +126,30 @@ def build_packed(kmers: torch.Tensor, nodes: torch.Tensor,
     run_len = torch.diff(run_starts, append=torch.tensor([n], device=dev))
     sz_row = torch.repeat_interleave(run_len, run_len, output_size=n)
     max_sz = int(run_len.max())
+    del run_starts, run_len  # the temporaries go as soon as they can: at
+    # 241 M rows each of these columns is 1.5-1.9 GB
     dup_b, dup_a = _dup2_masks(is_second, sz_row, ks)
     deep_frac = int(((sz_row > 2) | dup_a | dup_b).sum()) / n
 
-    tb = bs * 8
-    del bs
+    tb = bs.mul_(8)
     # the bucket's first row fills lanes 0-2, the second row of a plain
     # size-2 bucket lanes 4-6; dup2 buckets suppress their second slot
     slot = torch.where(is_first, tb, torch.where(
         is_second & (sz_row == 2) & ~dup_b, tb + 4, -1))
     put = slot >= 0
-    at, kp = slot[put], ks[put]
+    at = slot[put]
+    del slot
+    kp = ks[put]
     rec[at] = _i32_bits(kp & _U32)
     rec[at + 1] = _i32_bits(kp >> 32)
     rec[at + 2] = _i32_bits(ns[put])
-    del slot, put, at, kp
+    del put, at, kp
     szv = sz_row | torch.where(dup_a, DUP2, 0)
     rec[tb[is_first] + 3] = (~szv[is_first]).to(torch.int32)
     deep_first = is_first & ((sz_row > 2) | dup_a)
     rec[tb[deep_first] + 6] = _i32_bits(
         torch.nonzero(deep_first).flatten())
-    return PackedTables(rec.view(rows, 8), ks, ns, modulo2, max_sz,
-                        deep_frac)
+    return rec.view(n_records, 8), max_sz, deep_frac, bool(dup_b.any())
 
 
 # -- the steps of K2's plain twin ---------------------------------------------

@@ -11,10 +11,11 @@ uint64; the containers (parallel.sharded) hold the int32 ``(m2_local,
 8)`` and int64 views of the same bytes.
 
 Save works from a container whose columns hold every shard (numpy, or
-tensors anywhere). Load targets the host (every shard file read and
-stacked) or a mesh: each rank reads only its own table shard's file and
-places it on its card, so a serving fleet never materializes the whole
-table anywhere.
+tensors anywhere), or on a mesh from each rank's own shard on its card
+(each rank writes its own file). Load targets the host (every shard file
+read and stacked) or a mesh: each rank reads only its own table shard's
+file and places it on its card, so a serving fleet never materializes
+the whole table anywhere.
 
 A row slab may be stored shorter than the manifest's shape (the
 out-of-core build writes exact lengths); the loader pads it with zeros
@@ -25,10 +26,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .mesh import TABLE_AXIS, coordinates, mesh_device
 from .shard_files import _VERSION, _atomic_savez, manifest_path, shard_path
-from .sharded import PackedTableShards, TableShards
+from .sharded import PackedTableShards, TableShards, _local
 from ..utils.hugepages import hp_empty, hp_zeros
 
 # per-kind column schema on disk: name -> (per-shard ndim, dtype)
@@ -57,10 +59,8 @@ def _from_disk(name: str, a: np.ndarray) -> np.ndarray:
     return a
 
 
-def save_shards(shards, prefix: str) -> list[str]:
-    """Checkpoint a shard container to ``{prefix}.*`` files. Returns the
-    paths written. Writes are atomic (tmp + rename), so a crashed save
-    never leaves a torn shard file behind."""
+def _layout(shards):
+    """(kind, columns, manifest fields) of a shard container."""
     if isinstance(shards, PackedTableShards):
         kind = "packed"
         cols = {"records": shards.records, "row_kmers": shards.row_kmers,
@@ -77,9 +77,42 @@ def save_shards(shards, prefix: str) -> list[str]:
                     max_scan=shards.max_scan)
     else:
         raise TypeError(f"not a shard container: {type(shards).__name__}")
+    return kind, cols, meta
 
-    n_table = int(shards.n_table)
+
+def _save_shard_file(prefix: str, kind: str, t: int, n_table: int,
+                     cols: dict) -> str:
+    """Shard ``t``'s file from its columns (numpy, as the containers hold
+    them)."""
+    path = shard_path(prefix, t, n_table)
     schema = _SCHEMAS[kind]
+    _atomic_savez(path, **{
+        name: np.ascontiguousarray(
+            _to_disk(name, np.ascontiguousarray(cols[name]))
+        ).astype(schema[name][1], copy=False)
+        for name in schema})
+    return path
+
+
+def save_shards(shards, prefix: str, mesh=None,
+                axis: str = TABLE_AXIS) -> list[str]:
+    """Checkpoint a shard container to ``{prefix}.*`` files. Returns the
+    paths this process wrote. Writes are atomic (tmp + rename), so a
+    crashed save never leaves a torn shard file behind.
+
+    Without a mesh the container holds every shard (numpy, or tensors
+    anywhere). With a mesh every rank passes its own table shard (the
+    sharded builds' output, leading axis 1, on its card): the ranks at
+    data index 0 write their shard's file, rank 0 the manifest, which
+    holds every shard's row count (``shard_rows``, one all-gather over
+    the table group), the widest row slab's shape and ``max_node`` (an
+    ``all_reduce`` MAX). Row slabs are written at their own length, which
+    both packages' loaders pad; the call returns once every file is
+    written."""
+    kind, cols, meta = _layout(shards)
+    if mesh is not None:
+        return _save_own_shard(kind, cols, meta, prefix, mesh, axis)
+    n_table = int(shards.n_table)
     cols = {name: (a.cpu().numpy() if isinstance(a, torch.Tensor)
                    else np.asarray(a)) for name, a in cols.items()}
     for name, a in cols.items():
@@ -92,18 +125,50 @@ def save_shards(shards, prefix: str) -> list[str]:
                                           dtype=np.int64)
               for name, a in cols.items()}
 
-    written = []
-    for t in range(n_table):
-        path = shard_path(prefix, t, n_table)
-        _atomic_savez(path, **{
-            name: np.ascontiguousarray(
-                _to_disk(name, np.ascontiguousarray(cols[name][t]))
-            ).astype(schema[name][1], copy=False)
-            for name in schema})
-        written.append(path)
+    written = [_save_shard_file(prefix, kind, t, n_table,
+                                {name: a[t] for name, a in cols.items()})
+               for t in range(n_table)]
     path = manifest_path(prefix)
     _atomic_savez(path, **meta, **shapes)
     written.append(path)
+    return written
+
+
+def _save_own_shard(kind, cols, meta, prefix, mesh, axis) -> list[str]:
+    """save_shards on a mesh: this rank's table shard (see there)."""
+    n_table = int(meta["n_table"])
+    size = mesh.size(mesh.mesh_dim_names.index(axis))
+    if size != n_table:
+        raise ValueError(f"mesh axis {axis!r} has {size} devices but the "
+                         f"shards are {n_table}")
+    d, t = coordinates(mesh, table_axis=axis)
+    dev = mesh_device(mesh)
+    group = mesh.get_group(axis)
+    own = {name: _local(a, t, torch.device("cpu")).numpy()
+           for name, a in cols.items()}
+    rows = torch.tensor([own["row_kmers"].shape[0]], dtype=torch.int64,
+                        device=dev)
+    shard_rows = [torch.empty_like(rows) for _ in range(n_table)]
+    dist.all_gather(shard_rows, rows, group=group)
+    shard_rows = np.asarray([int(r) for r in shard_rows], dtype=np.int64)
+    nodes = own["row_nodes"]
+    max_node = torch.tensor([int(nodes.max()) if nodes.size else 0],
+                            dtype=torch.int64, device=dev)
+    dist.all_reduce(max_node, op=dist.ReduceOp.MAX, group=group)
+    meta.update(max_node=int(max_node), shard_rows=shard_rows)
+    shapes = {f"shape_{name}": np.asarray(
+        (int(shard_rows.max()),) if name.startswith("row_")
+        else _to_disk(name, a).shape, dtype=np.int64)
+        for name, a in own.items()}
+    written = []
+    if d == 0:
+        written.append(_save_shard_file(prefix, kind, t, n_table, own))
+    if dist.get_rank() == 0:
+        path = manifest_path(prefix)
+        _atomic_savez(path, **meta, **shapes)
+        written.append(path)
+    # every rank returns once every file exists (a barrier on the card)
+    dist.all_reduce(torch.zeros(1, device=dev))
     return written
 
 

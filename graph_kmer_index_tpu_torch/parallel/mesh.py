@@ -72,8 +72,7 @@ def build_mesh(n_data: int | None = None, n_table: int = 1,
     if n_data * n_table != world:
         raise ValueError(f"a {n_data} x {n_table} mesh needs "
                          f"{n_data * n_table} ranks, the group has {world}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (n_data, n_table),
+    return init_device_mesh(group_device().type, (n_data, n_table),
                             mesh_dim_names=(data_axis, table_axis))
 
 
@@ -93,6 +92,14 @@ def coordinates(mesh, data_axis: str = DATA_AXIS,
                 table_axis: str = TABLE_AXIS) -> tuple[int, int]:
     """(data index, table index) of this rank."""
     return mesh.get_local_rank(data_axis), mesh.get_local_rank(table_axis)
+
+
+def group_device() -> torch.device:
+    """The device of this rank's tensors in the started group: its card
+    under NCCL, the CPU under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def mesh_device(mesh) -> torch.device:

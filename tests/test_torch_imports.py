@@ -129,6 +129,35 @@ def test_sharded_path_runs_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_ENTRY = """
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["graph_kmer_index_tpu"] = None
+import torch
+from graph_kmer_index_tpu_torch.entry import dryrun_multichip, entry
+from graph_kmer_index_tpu_torch.utils.profiling import Timings, device_trace
+timings = Timings()
+with tempfile.TemporaryDirectory() as wd:
+    with timings.span("forward"), device_trace(wd) as trace:
+        fn, (reads,) = entry(device="cpu")
+        counts = fn(reads)
+    assert trace.path.startswith(wd)
+assert counts.dtype == torch.int32 and int(counts.sum()) > 0
+assert "forward" in timings.report()
+dryrun_multichip(2, device="cpu", timeout=240)
+print("ok")
+"""
+
+
+def test_entry_and_profiling_run_without_jax():
+    """entry(), the multi-rank dry run (gloo) and the profiling harness
+    run with jax and the JAX package unimportable."""
+    proc = subprocess.run([sys.executable, "-c", _ENTRY], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_out_of_core_workers_import_numpy_alone():
     """The out-of-core build's modules, which its pool workers import,
     do not import torch."""

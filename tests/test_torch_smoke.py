@@ -606,3 +606,48 @@ def test_smoke_sharded_phase_on_cpu(tmp_path, capsys):
                   "shard(s)", "map_reads -T (1 rank(s), spawned)"):
         assert f"stage {stage}: " in out
     assert "sharded path: the out-of-core index == the build path's" in out
+
+
+def test_smoke_sharded_build_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    """The sharded-build phase at a tiny size over a tiny build phase: the
+    sharded builds against the single-table ones, the steps, the
+    data-parallel functions, the checkpoint round trip, entry() and a
+    spawned one-rank dry run (gloo), and its checks."""
+    cs = _smoke()
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    args = cs.parse_args(["--build-bases", "60000", "--build-variants",
+                          "240", "--build-reads", "300"])
+    cs.require_native()
+    built = cs.build_path(dev, "CPU", args, n_workers=2, mp_context=None,
+                          modulo=100_003)
+    sb = cs.sharded_build_path(dev, "CPU", built, tmp_path, gen,
+                               modulo=100_003)
+    assert sb["k1_err"] == 0 and sb["k2_err"] == 0 and sb["trace_bytes"] > 0
+    assert not any(sb["launches"].values())  # a CPU tensor takes the twins
+    with pytest.raises(AssertionError, match="sliding_hash was not launched "
+                       "by the sharded-build path"):
+        cs.check_sharded_build(sb)
+    sb["launches"].update(sliding_hash=1, packed_lookup=2)
+    with pytest.raises(AssertionError, match="packed steps did not launch"):
+        cs.check_sharded_build(sb)
+    sb["step_k2"] = 2
+    with pytest.raises(AssertionError, match="forward did not launch K1"):
+        cs.check_sharded_build(sb)
+    sb["forward_k1"] = 1
+    cs.check_sharded_build(sb)
+    out = capsys.readouterr().out
+    for stage in ("build_packed_shards_sharded",
+                  "packed count step (from k-mers)",
+                  "build_table_shards_sharded", "frequencies_sharded",
+                  "save_shards on the mesh (CSR shard)",
+                  "dryrun_multichip(1), spawned"):
+        assert f"stage {stage}: " in out
+    assert "sharded-build phase: " in out and "TOTAL" in out
+    # a wrong answer of a sharded function fails the phase
+    monkeypatch.setattr(cs.sharded, "frequencies_sharded",
+                        lambda k, r: torch.zeros_like(k))
+    with pytest.raises(AssertionError, match="frequencies_sharded"):
+        cs.sharded_build_path(dev, "CPU", built, tmp_path / "again", gen,
+                              modulo=100_003)
