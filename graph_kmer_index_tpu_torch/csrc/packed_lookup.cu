@@ -46,6 +46,13 @@
 //      of that k-mer reads the result back.
 // Queries at index >= n_valid are padding: no hit, no count.
 //
+// Counters (kStats; the instantiations without them are the plain
+// lookup): per block, the valid queries whose bucket the table (shard)
+// holds, the pending ones, and the rows the scan read and that matched;
+// counted in the block (barrier counts, a sum per warp), then added by
+// one atomic per counter into copy blockIdx.x % kStatStripes of the
+// counters, so that no one address takes every block's atomics.
+//
 // Bound on this card: bytes. Per query 8 bytes of query and one random
 // 32-byte record (a full sector), plus one byte of hit or the counts
 // written once, plus the scanned rows. The random record reads are what
@@ -72,6 +79,10 @@ static_assert(kSlots >= 2 * kThreads,
 constexpr uint32_t kDup2 = 1u << 30;
 constexpr unsigned long long kEmpty = ~0ULL;  // no k-mer: hashes are < 2^62
 constexpr unsigned kFull = 0xffffffffu;
+// copies of the counters ([queries, pending, scan rows, scan matches]
+// each); the caller sums them (utils/profiling.py: COUNTER_STRIPES)
+constexpr int kStatStripes = 64;
+constexpr int kStatCount = 4;
 
 struct BlockTable {
   unsigned long long key[kSlots];
@@ -103,7 +114,13 @@ __device__ __forceinline__ int table_insert(BlockTable& t,
   }
 }
 
-template <bool kCounts>
+// this block's copy of the counters
+__device__ __forceinline__ unsigned long long* stat_stripe(
+    unsigned long long* stats) {
+  return stats + kStatCount * (blockIdx.x % kStatStripes);
+}
+
+template <bool kCounts, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 packed_lookup_kernel(const int4* __restrict__ records,
                      const long long* __restrict__ queries, long long n_q,
@@ -113,7 +130,8 @@ packed_lookup_kernel(const int4* __restrict__ records,
                      const long long* __restrict__ ks,
                      const long long* __restrict__ ns, long long n_rows,
                      unsigned long long* __restrict__ counts,
-                     long long n_nodes, uint8_t* __restrict__ hit_out) {
+                     long long n_nodes, uint8_t* __restrict__ hit_out,
+                     unsigned long long* __restrict__ stats) {
   __shared__ BlockTable table;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -161,7 +179,20 @@ packed_lookup_kernel(const int4* __restrict__ records,
     hit_out[i] = (hit0 || hit1) ? 1 : 0;
   }
   // most tiles end here: the table is set up only where a query needs it
-  if (!__syncthreads_or(pending)) return;
+  if constexpr (kStats) {
+    const int n_owned = __syncthreads_count(valid);
+    const int n_pending = __syncthreads_count(pending);
+    if (tid == 0) {
+      unsigned long long* st = stat_stripe(stats);
+      if (n_owned) atomicAdd(st, static_cast<unsigned long long>(n_owned));
+      if (n_pending) {
+        atomicAdd(st + 1, static_cast<unsigned long long>(n_pending));
+      }
+    }
+    if (!n_pending) return;
+  } else {
+    if (!__syncthreads_or(pending)) return;
+  }
 
   for (int s = tid; s < kSlots; s += kThreads) {
     table.key[s] = kEmpty;
@@ -174,7 +205,9 @@ packed_lookup_kernel(const int4* __restrict__ records,
   }
   __syncthreads();
 
-  // one warp per distinct pending k-mer of the tile
+  // one warp per distinct pending k-mer of the tile; the warp's rows
+  // read and matched (kStats), the same in every lane
+  unsigned long long scan_rows = 0, scan_matches = 0;
   for (int c = tid >> 5; c < kSlots / 32; c += kWarps) {
     unsigned todo = __ballot_sync(kFull, table.key[c * 32 + lane] != kEmpty);
     while (todo) {
@@ -186,8 +219,13 @@ packed_lookup_kernel(const int4* __restrict__ records,
       const unsigned long long mult = table.mult[s];
       for (uint32_t r = 0; r < size; r += 32) {
         const long long row = first + r + lane;
-        const bool match = r + lane < size && row < n_rows &&
-                           static_cast<unsigned long long>(ks[row]) == want;
+        const bool read = r + lane < size && row < n_rows;
+        const bool match =
+            read && static_cast<unsigned long long>(ks[row]) == want;
+        if constexpr (kStats) {
+          scan_rows += __popc(__ballot_sync(kFull, read));
+          scan_matches += __popc(__ballot_sync(kFull, match));
+        }
         if (kCounts) {
           const long long node = match ? ns[row] : -1;
           const bool take = match && node >= 0 && node < n_nodes;
@@ -203,9 +241,44 @@ packed_lookup_kernel(const int4* __restrict__ records,
       }
     }
   }
+  if constexpr (kStats) {
+    __shared__ unsigned long long warp_sums[kWarps][2];
+    if (lane == 0) {
+      warp_sums[tid >> 5][0] = scan_rows;
+      warp_sums[tid >> 5][1] = scan_matches;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long rows = 0, matches = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        rows += warp_sums[w][0];
+        matches += warp_sums[w][1];
+      }
+      unsigned long long* st = stat_stripe(stats);
+      if (rows) atomicAdd(st + 2, rows);
+      if (matches) atomicAdd(st + 3, matches);
+    }
+  }
   if (kCounts) return;
   __syncthreads();
   if (slot >= 0) hit_out[i] = table.mult[slot] ? 1 : 0;
+}
+
+template <bool kCounts, bool kStats>
+void launch(unsigned int blocks, cudaStream_t st, const void* records,
+            const void* queries, long long n_q, long long n_valid,
+            unsigned long long modulo2, unsigned long long bucket_base,
+            unsigned long long m2_local, const void* ks, const void* ns,
+            long long n_rows, void* counts, long long n_nodes,
+            void* hit_out, void* stats) {
+  packed_lookup_kernel<kCounts, kStats><<<blocks, kThreads, 0, st>>>(
+      static_cast<const int4*>(records),
+      static_cast<const long long*>(queries), n_q, n_valid, modulo2,
+      bucket_base, m2_local, static_cast<const long long*>(ks),
+      static_cast<const long long*>(ns), n_rows,
+      static_cast<unsigned long long*>(counts), n_nodes,
+      static_cast<uint8_t*>(hit_out),
+      static_cast<unsigned long long*>(stats));
 }
 
 }  // namespace
@@ -213,7 +286,8 @@ packed_lookup_kernel(const int4* __restrict__ records,
 // counts_mode != 0: counts mode (counts: n_nodes zeroed int64; hit_out
 // unused), else membership mode (hit_out: n_q bytes, every one written;
 // counts unused). records holds m2_local records, those of the buckets
-// from bucket_base on; ks and ns hold n_rows rows each.
+// from bucket_base on; ks and ns hold n_rows rows each. stats: null, or
+// kStatStripes x kStatCount int64 counters that the launch adds to.
 extern "C" int gki_packed_lookup(const void* records, const void* queries,
                                  long long n_q, long long n_valid,
                                  unsigned long long modulo2,
@@ -221,26 +295,22 @@ extern "C" int gki_packed_lookup(const void* records, const void* queries,
                                  unsigned long long m2_local, const void* ks,
                                  const void* ns, long long n_rows,
                                  void* counts, long long n_nodes,
-                                 void* hit_out, int counts_mode,
+                                 void* hit_out, int counts_mode, void* stats,
                                  void* stream) {
   if (n_q <= 0) return 0;
   const unsigned int blocks =
       static_cast<unsigned int>((n_q + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (counts_mode) {
-    packed_lookup_kernel<true><<<blocks, kThreads, 0, st>>>(
-        static_cast<const int4*>(records),
-        static_cast<const long long*>(queries), n_q, n_valid, modulo2,
-        bucket_base, m2_local, static_cast<const long long*>(ks),
-        static_cast<const long long*>(ns), n_rows,
-        static_cast<unsigned long long*>(counts), n_nodes, nullptr);
+    hit_out = nullptr;
   } else {
-    packed_lookup_kernel<false><<<blocks, kThreads, 0, st>>>(
-        static_cast<const int4*>(records),
-        static_cast<const long long*>(queries), n_q, n_valid, modulo2,
-        bucket_base, m2_local, static_cast<const long long*>(ks),
-        static_cast<const long long*>(ns), n_rows, nullptr, 0,
-        static_cast<uint8_t*>(hit_out));
+    counts = nullptr;
+    n_nodes = 0;
   }
+  auto run = counts_mode
+                 ? (stats ? launch<true, true> : launch<true, false>)
+                 : (stats ? launch<false, true> : launch<false, false>);
+  run(blocks, st, records, queries, n_q, n_valid, modulo2, bucket_base,
+      m2_local, ks, ns, n_rows, counts, n_nodes, hit_out, stats);
   return static_cast<int>(cudaGetLastError());
 }

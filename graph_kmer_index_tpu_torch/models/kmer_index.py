@@ -34,6 +34,7 @@ from ..hashing import (kmer_hashes_to_complement_hashes,
 from ..ops.encode import revcomp_hashes
 from ..ops.lookup import (DeviceKmerIndex, _bucket_hits, as_device_tensor)
 from ..read_kmers import DeviceReadKmers
+from ..utils import profiling
 from ..utils.hugepages import hp_empty, hp_zeros
 
 # the reference's default modulo (CollisionFreeKmerIndex.from_flat_kmers)
@@ -538,9 +539,10 @@ class KmerIndex:
     # -- batched queries -------------------------------------------------------
 
     def _queries(self, kmers) -> torch.Tensor:
-        if not isinstance(kmers, torch.Tensor):
-            kmers = np.asarray(kmers, dtype=np.uint64)
-        return as_device_tensor(kmers, torch.int64, self.device)
+        with profiling.span("kmer_index.upload"):
+            if not isinstance(kmers, torch.Tensor):
+                kmers = np.asarray(kmers, dtype=np.uint64)
+            return as_device_tensor(kmers, torch.int64, self.device)
 
     def _native(self):
         """The native (C++) view of this index, made at first use; None
@@ -563,14 +565,17 @@ class KmerIndex:
         array of hashes. ``backend``: 'device' (the lookup on the index's
         device) or 'native' (host C++; the device lookup where there is
         no native library, as in the JAX package)."""
-        if backend == "native" and self._native() is not None:
-            return self._native().map_kmers(self._host_queries(kmers),
-                                            n_nodes)
-        if isinstance(kmers, DeviceReadKmers):
-            counts = self.device_index.map_read_kmers(kmers, n_nodes)
-        else:
-            counts = self.device_index.map_kmers(self._queries(kmers), n_nodes)
-        return counts.cpu().numpy()
+        with profiling.span("kmer_index.map_kmers"):
+            if backend == "native" and self._native() is not None:
+                return self._native().map_kmers(self._host_queries(kmers),
+                                                n_nodes)
+            if isinstance(kmers, DeviceReadKmers):
+                counts = self.device_index.map_read_kmers(kmers, n_nodes)
+            else:
+                counts = self.device_index.map_kmers(self._queries(kmers),
+                                                     n_nodes)
+            with profiling.span("kmer_index.counts_to_host"):
+                return counts.cpu().numpy()
 
     def has_kmers(self, kmers, backend="device") -> np.ndarray:
         """Membership of each query k-mer (bool, in query order)."""

@@ -106,7 +106,7 @@ def library() -> ctypes.CDLL:
     lib.gki_sliding_hash.restype = ctypes.c_int
     lib.gki_packed_lookup.argtypes = [ptr, ptr, i64, i64, u64, u64, u64,
                                       ptr, ptr, i64, ptr, i64, ptr,
-                                      ctypes.c_int, ptr]
+                                      ctypes.c_int, ptr, ptr]
     lib.gki_packed_lookup.restype = ctypes.c_int
     lib.gki_sliding_pack.argtypes = [ptr, ptr, i64, ctypes.c_int,
                                      ctypes.c_int, ptr]

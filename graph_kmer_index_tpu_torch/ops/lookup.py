@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _kernels
 from .packed_layout import (DUP2, SCAN_CAP, _dup2_masks, internal_modulo,
                             record_rows)
@@ -67,6 +68,9 @@ _ULTRA_ROWS_PER_CHUNK = 1 << 24
 # query classes of packed_decode_plain (0: final, answered by the record
 # lanes)
 CLS_DEEP, CLS_ULTRA = 1, 2
+# K2's tile of queries (a block) and the rows a warp of its bucket scan
+# reads a pass (csrc/packed_lookup.cu: kThreads, a warp)
+K2_TILE, K2_SCAN_PASS = 256, 32
 
 
 def _i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -314,13 +318,57 @@ def finish_classes(tables: PackedTables, queries, out, cls, n_nodes=None,
     return out
 
 
+def k2_stats_plain(tables: PackedTables, queries, n_valid, cls,
+                   counts_mode: bool, bucket_base=0,
+                   m2_local=None) -> list[int]:
+    """K2's four counters (profiling.K2_COUNTERS) of one launch, as the
+    kernel counts them: valid queries whose bucket the table (shard)
+    holds; pending ones (``cls`` nonzero: the lanes could not answer
+    them); and the rows the bucket scan reads and that match, once per
+    distinct pending k-mer of a tile of K2_TILE queries. In membership
+    mode the scan of a k-mer reads K2_SCAN_PASS rows a pass and stops
+    after the pass of its first match."""
+    dev = queries.device
+    n = queries.shape[0]
+    m2 = tables.modulo2 if m2_local is None else m2_local
+    _, owned = _local_buckets(queries, tables.modulo2, bucket_base, m2)
+    valid = (torch.arange(n, device=dev) < n_valid) & owned
+    pend = torch.nonzero(cls != 0).flatten()
+    pairs = torch.unique(torch.stack([pend // K2_TILE, queries[pend]], 1),
+                         dim=0)
+    key = pairs[:, 1]
+    start, size = _bucket_meta(tables, key, bucket_base)
+    total = int(size.sum())
+    owner = torch.repeat_interleave(torch.arange(key.shape[0], device=dev),
+                                    size, output_size=total)
+    j = torch.arange(total, device=dev) - torch.repeat_interleave(
+        torch.cumsum(size, 0) - size, size, output_size=total)
+    row = start[owner] + j
+    n_rows = tables.ks.shape[0]
+    read = row < n_rows
+    match = read & (tables.ks[row.clamp(max=max(0, n_rows - 1))]
+                    == key[owner])
+    if not counts_mode:
+        # the passes up to the first match's: later rows are not read
+        first = torch.full_like(key, total)
+        first.scatter_reduce_(0, owner[match], j[match] // K2_SCAN_PASS,
+                              "amin")
+        read &= j // K2_SCAN_PASS <= first[owner]
+        match &= read
+    return [int(valid.sum()), int(pend.shape[0]), int(read.sum()),
+            int(match.sum())]
+
+
 def packed_lookup_plain(tables: PackedTables, queries, n_valid,
-                        n_nodes=None, bucket_base=0, m2_local=None):
+                        n_nodes=None, bucket_base=0, m2_local=None,
+                        stats=None):
     """Plain twin of K2: the packed lookup of ``queries[:n_valid]`` (the
     rest is padding). With ``n_nodes``: int64 hit counts per node (nodes
     >= n_nodes dropped); without: bool membership per query. The lanes
     answer what they can (:func:`packed_decode_plain`), then
-    :func:`finish_classes` the rest.
+    :func:`finish_classes` the rest. ``stats``: an int64 counter tensor
+    (profiling.counter_tensor) to add K2's counters to
+    (:func:`k2_stats_plain`), in its first row.
 
     Shard mode: ``tables`` is the table shard of the internal buckets
     [bucket_base, bucket_base + m2_local) (its records, and its rows with
@@ -331,6 +379,11 @@ def packed_lookup_plain(tables: PackedTables, queries, n_valid,
     out, cls = packed_decode_plain(tables.records, queries, n_valid,
                                    tables.modulo2, n_nodes, bucket_base,
                                    m2_local)
+    if stats is not None:
+        stats[0] += torch.tensor(
+            k2_stats_plain(tables, queries, n_valid, cls,
+                           n_nodes is not None, bucket_base, m2_local),
+            dtype=torch.int64, device=stats.device)
     return finish_classes(tables, queries, out, cls, n_nodes, bucket_base)
 
 
@@ -338,10 +391,14 @@ def packed_lookup(tables: PackedTables, queries, n_valid, n_nodes=None,
                   bucket_base=0, m2_local=None):
     """Kernel K2 on CUDA tensors, the plain twin on CPU tensors; same
     contract as :func:`packed_lookup_plain`, shard mode included. Queries
-    are hashes: int64 values >= 0."""
+    are hashes: int64 values >= 0. While a profiler session records
+    (utils.profiling.active), the launch adds K2's counters to the
+    device's (profiling.counters); otherwise K2 counts nothing."""
+    stats = (profiling.counter_tensor(queries.device)
+             if profiling.active() else None)
     if queries.device.type == "cpu":
         return packed_lookup_plain(tables, queries, n_valid, n_nodes,
-                                   bucket_base, m2_local)
+                                   bucket_base, m2_local, stats)
     records, modulo2 = tables.records, tables.modulo2
     if m2_local is None:
         m2_local = modulo2
@@ -364,26 +421,28 @@ def packed_lookup(tables: PackedTables, queries, n_valid, n_nodes=None,
     if n_nodes is not None and n_nodes < 0:
         raise ValueError(f"n_nodes must be >= 0, got {n_nodes}")
     n = queries.shape[0]
-    if n_nodes is None:
-        out = torch.empty(n, dtype=torch.bool, device=dev)
-    else:
-        out = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
-    if n == 0:
-        return out
-    counts_mode = n_nodes is not None
-    lib = _kernels.library()
-    with torch.cuda.device(dev):
-        err = lib.gki_packed_lookup(
-            records.data_ptr(), queries.data_ptr(), n,
-            max(0, min(n_valid, n)), modulo2, bucket_base, m2_local,
-            tables.ks.data_ptr(),
-            tables.ns.data_ptr(), tables.ks.shape[0],
-            out.data_ptr() if counts_mode else None,
-            n_nodes if counts_mode else 0,
-            None if counts_mode else out.data_ptr(), int(counts_mode),
-            _kernels.stream_handle(dev))
-    _kernels.check_launch("packed_lookup", err)
-    _kernels.launch_counts["packed_lookup"] += 1
+    with profiling.span("lookup.k2"):
+        if n_nodes is None:
+            out = torch.empty(n, dtype=torch.bool, device=dev)
+        else:
+            out = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
+        if n == 0:
+            return out
+        counts_mode = n_nodes is not None
+        lib = _kernels.library()
+        with torch.cuda.device(dev):
+            err = lib.gki_packed_lookup(
+                records.data_ptr(), queries.data_ptr(), n,
+                max(0, min(n_valid, n)), modulo2, bucket_base, m2_local,
+                tables.ks.data_ptr(),
+                tables.ns.data_ptr(), tables.ks.shape[0],
+                out.data_ptr() if counts_mode else None,
+                n_nodes if counts_mode else 0,
+                None if counts_mode else out.data_ptr(), int(counts_mode),
+                None if stats is None else stats.data_ptr(),
+                _kernels.stream_handle(dev))
+        _kernels.check_launch("packed_lookup", err)
+        _kernels.launch_counts["packed_lookup"] += 1
     return out
 
 

@@ -10,6 +10,7 @@ k-mers stay on the device for the lookup.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import time
@@ -23,6 +24,7 @@ from .hashing import (ASCII_TO_2BIT, kmer_to_hash_fast,
                       letter_sequence_to_numeric, power_array,
                       sliding_window_hashes)
 from .ops.encode import read_tape_hashes, revcomp_hashes
+from .utils import profiling
 
 # a tape segment holds at most this many bases (cut at read boundaries):
 # it bounds the device transients of hashing and compaction
@@ -137,45 +139,54 @@ def hash_fasta_file(path, k: int, *, device,
     """All window hashes of all reads in a FASTA/FASTQ file, on
     ``device``: every forward k-mer in read order, then (with
     ``include_reverse_complements``) every reverse complement in the same
-    order. With ``stage_seconds``, host-clock seconds of the read (the
-    file cut into whole-record blocks), parse (a block's 2-bit encoding),
-    upload and hash stages are added to it (each stage ends in a device
-    synchronise)."""
+    order. The read (the file cut into whole-record blocks), parse (a
+    block's 2-bit encoding), upload and hash stages are the spans
+    ``read_kmers.<stage>`` inside ``read_kmers.hash_fasta_file``
+    (utils.profiling). With ``stage_seconds``, each stage also ends in a
+    device synchronise and its host-clock seconds are added to it."""
     dev = resolve_device(device)
-    timed = stage_seconds is not None
 
-    def mark(stage, t0):
-        if timed:
+    @contextlib.contextmanager
+    def timed(name):
+        t0 = time.perf_counter()
+        with profiling.span(name):
+            yield
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            stage_seconds[stage] = (stage_seconds.get(stage, 0.0)
-                                    + time.perf_counter() - t0)
-        return time.perf_counter()
+        key = name.rpartition(".")[2]
+        stage_seconds[key] = (stage_seconds.get(key, 0.0)
+                              + time.perf_counter() - t0)
+
+    def stage(name):
+        return profiling.span(name) if stage_seconds is None else timed(name)
 
     fw, rc = [], []
-    blocks = _iter_record_blocks(path, block_bytes or BLOCK_BYTES)
-    t = time.perf_counter()
-    for text in blocks:
-        t = mark("read", t)
-        flat, starts, lens = encode_block(text)
-        t = mark("parse", t)
-        if len(flat) == 0:
-            continue
-        cuts = _segment_cuts(starts, lens, SEGMENT_BASES)
-        for r0, r1 in zip(cuts[:-1], cuts[1:]):
-            base = int(starts[r0])
-            seg_n = int(starts[r1 - 1] + lens[r1 - 1]) - base
-            tape = torch.from_numpy(flat[base:base + seg_n]).to(dev)
-            seg_starts = torch.from_numpy(starts[r0:r1] - base).to(dev)
-            seg_lens = torch.from_numpy(lens[r0:r1]).to(dev)
-            t = mark("upload", t)
-            hashes, _n_valid = read_tape_hashes(tape, seg_starts, seg_lens,
-                                                seg_n, k)
-            del tape
-            fw.append(hashes)
-            if include_reverse_complements:
-                rc.append(revcomp_hashes(hashes, k))
-            t = mark("hash", t)
+    with profiling.span("read_kmers.hash_fasta_file"):
+        blocks = _iter_record_blocks(path, block_bytes or BLOCK_BYTES)
+        while True:
+            with stage("read_kmers.read"):
+                text = next(blocks, None)
+            if text is None:
+                break
+            with stage("read_kmers.parse"):
+                flat, starts, lens = encode_block(text)
+            if len(flat) == 0:
+                continue
+            cuts = _segment_cuts(starts, lens, SEGMENT_BASES)
+            for r0, r1 in zip(cuts[:-1], cuts[1:]):
+                base = int(starts[r0])
+                seg_n = int(starts[r1 - 1] + lens[r1 - 1]) - base
+                with stage("read_kmers.upload"):
+                    tape = torch.from_numpy(flat[base:base + seg_n]).to(dev)
+                    seg_starts = torch.from_numpy(starts[r0:r1] - base).to(dev)
+                    seg_lens = torch.from_numpy(lens[r0:r1]).to(dev)
+                with stage("read_kmers.hash"):
+                    hashes, _n_valid = read_tape_hashes(
+                        tape, seg_starts, seg_lens, seg_n, k)
+                    del tape
+                    fw.append(hashes)
+                    if include_reverse_complements:
+                        rc.append(revcomp_hashes(hashes, k))
     return DeviceReadKmers(fw + rc, k)
 
 

@@ -1,6 +1,33 @@
 """Profiling harness: the port of graph_kmer_index_tpu/utils/profiling.py.
 Span timing on the host's clock, ``torch.profiler`` traces of device work,
-and the reference's run_profile.py scenario.
+the program's own spans and counters, and the reference's run_profile.py
+scenario.
+
+Spans and counters are on while a ``torch.profiler`` session records
+(:func:`active`): a session of the caller's own, or :func:`device_trace`.
+A span is then a ``record_function`` range in the profiler's trace, on
+the clock that the trace shares with the device's activity; otherwise it
+costs one flag read. The read-mapping path's spans, each nested in the
+one above it:
+
+    kmer_index.map_kmers       KmerIndex.map_kmers, the whole call
+      kmer_index.upload        KmerIndex._queries: the queries to the device
+      lookup.k2                ops.lookup.packed_lookup on CUDA: the counts'
+                               zeroing and K2's launch (host time only)
+      kmer_index.counts_to_host  the wait for K2 and the counts' copy
+    read_kmers.hash_fasta_file   read_kmers.hash_fasta_file, the whole call
+      read_kmers.read          the next whole-record block of the file
+      read_kmers.parse         the block's 2-bit encoding
+      read_kmers.upload        the tape segment to the device
+      read_kmers.hash          K1 and the reverse complements
+
+Counters (:func:`counters`): K2 adds, per launch while a session records,
+``k2.queries`` (valid queries whose bucket lies in the table or its
+shard), ``k2.pending`` (those the record's lanes could not answer, left
+to the bucket scan), ``k2.scan_rows`` (rows the scan read, once per
+distinct k-mer of a tile of 256 queries) and ``k2.scan_matches`` (rows
+that matched). They live in one small int64 tensor per device, made at
+the first counted launch, and come to the host only when read.
 """
 from __future__ import annotations
 
@@ -8,6 +35,71 @@ import contextlib
 import logging
 import os
 import time
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+K2_COUNTERS = ("k2.queries", "k2.pending", "k2.scan_rows", "k2.scan_matches")
+# copies of the counters that K2's blocks add to in turn
+# (csrc/packed_lookup.cu: kStatStripes), so that no one address takes
+# every block's atomics
+COUNTER_STRIPES = 64
+
+_OFF = contextlib.nullcontext()
+_counter_tensors: dict[torch.device, torch.Tensor] = {}
+
+
+def active() -> bool:
+    """True while a ``torch.profiler`` session records."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context: a ``record_function`` range named ``name`` while a
+    profiler session records; otherwise a shared no-op (no clock read, no
+    allocation, no synchronise)."""
+    if not active():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def _device_key(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def counter_tensor(device) -> torch.Tensor:
+    """The device's counters, ``(COUNTER_STRIPES, len(K2_COUNTERS))``
+    int64, made zero at first use."""
+    key = _device_key(device)
+    t = _counter_tensors.get(key)
+    if t is None:
+        t = torch.zeros((COUNTER_STRIPES, len(K2_COUNTERS)),
+                        dtype=torch.int64, device=key)
+        _counter_tensors[key] = t
+    return t
+
+
+def counters(device=None) -> dict[str, int]:
+    """The counters of ``device`` (of every device, summed, where None)
+    since the last :func:`reset_counters`; 0 where nothing was counted.
+    Reading them synchronises with the device once."""
+    keys = (list(_counter_tensors) if device is None
+            else [_device_key(device)])
+    total = [0] * len(K2_COUNTERS)
+    for key in keys:
+        t = _counter_tensors.get(key)
+        if t is not None:
+            total = [a + b for a, b in zip(total, t.sum(0).tolist())]
+    return dict(zip(K2_COUNTERS, total))
+
+
+def reset_counters() -> None:
+    """Drop every device's counters: the next counted launch starts them
+    at zero."""
+    _counter_tensors.clear()
 
 
 class Timings:
@@ -34,27 +126,32 @@ class Timings:
 
 
 class Trace:
-    """The file a :func:`device_trace` wrote (``path``, set when its
-    block ends)."""
+    """The file a :func:`device_trace` wrote (``path``) and the block's
+    :func:`counters` (``counters``), both set when its block ends."""
 
     path: str | None = None
+    counters: dict[str, int] | None = None
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """``torch.profiler`` around a block, CPU and CUDA activities, written
     as a Chrome trace (chrome://tracing, Perfetto) into ``log_dir``, also
-    when the block raises. Yields a :class:`Trace` that names the file."""
+    when the block raises; the program's spans are in it. Yields a
+    :class:`Trace` that names the file and keeps the block's counters
+    (reset when the block starts)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(log_dir, exist_ok=True)
     trace = Trace()
+    reset_counters()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     prof.start()
     try:
         yield trace
     finally:
         prof.stop()
+        trace.counters = counters()
         path = os.path.join(log_dir,
                             f"trace-{os.getpid()}-{time.time_ns()}.json")
         prof.export_chrome_trace(path)
