@@ -31,6 +31,7 @@ from ..device import resolve_device
 from ..flat_kmers import FlatKmers, host_column, is_tensor
 from ..hashing import (kmer_hashes_to_complement_hashes,
                        kmer_hashes_to_reverse_complement_hash)
+from ..ops import host_buffers
 from ..ops.encode import revcomp_hashes
 from ..ops.lookup import (DeviceKmerIndex, _bucket_hits, as_device_tensor)
 from ..read_kmers import DeviceReadKmers
@@ -564,7 +565,9 @@ class KmerIndex:
         dropped) for query k-mers: a DeviceReadKmers, a tensor or a numpy
         array of hashes. ``backend``: 'device' (the lookup on the index's
         device) or 'native' (host C++; the device lookup where there is
-        no native library, as in the JAX package)."""
+        no native library, as in the JAX package). Counts made on a CUDA
+        device come back in a pinned host block (ops/host_buffers.py),
+        lent until the returned array and every view of it are gone."""
         with profiling.span("kmer_index.map_kmers"):
             if backend == "native" and self._native() is not None:
                 return self._native().map_kmers(self._host_queries(kmers),
@@ -575,7 +578,11 @@ class KmerIndex:
                 counts = self.device_index.map_kmers(self._queries(kmers),
                                                      n_nodes)
             with profiling.span("kmer_index.counts_to_host"):
-                return counts.cpu().numpy()
+                if counts.device.type != "cuda":
+                    return counts.cpu().numpy()
+                block = host_buffers.take(counts.numel(), counts.dtype)
+                block.copy_(counts)
+                return block.numpy()
 
     def has_kmers(self, kmers, backend="device") -> np.ndarray:
         """Membership of each query k-mer (bool, in query order)."""

@@ -27,19 +27,25 @@ shard), ``k2.pending`` (those the record's lanes could not answer, left
 to the bucket scan), ``k2.scan_rows`` (rows the scan read, once per
 distinct k-mer of a tile of 256 queries) and ``k2.scan_matches`` (rows
 that matched). They live in one small int64 tensor per device, made at
-the first counted launch, and come to the host only when read.
+the first counted launch, and come to the host only when read. Beside
+them, on the host, the pool of pinned count blocks
+(``ops/host_buffers.py``) adds ``host_counts.reused`` (a block answered
+from the free list) and ``host_counts.allocated`` (a block that had to
+be mapped and pinned).
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import os
+import threading
 import time
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
 K2_COUNTERS = ("k2.queries", "k2.pending", "k2.scan_rows", "k2.scan_matches")
+HOST_COUNTERS = ("host_counts.reused", "host_counts.allocated")
 # copies of the counters that K2's blocks add to in turn
 # (csrc/packed_lookup.cu: kStatStripes), so that no one address takes
 # every block's atomics
@@ -47,6 +53,8 @@ COUNTER_STRIPES = 64
 
 _OFF = contextlib.nullcontext()
 _counter_tensors: dict[torch.device, torch.Tensor] = {}
+_host_counters = dict.fromkeys(HOST_COUNTERS, 0)
+_host_counters_lock = threading.Lock()
 
 
 def active() -> bool:
@@ -61,6 +69,13 @@ def span(name: str):
     if not active():
         return _OFF
     return torch.profiler.record_function(name)
+
+
+def count(name: str) -> None:
+    """Add one to the host counter ``name`` while a session records."""
+    if active():
+        with _host_counters_lock:
+            _host_counters[name] += 1
 
 
 def _device_key(device) -> torch.device:
@@ -83,9 +98,10 @@ def counter_tensor(device) -> torch.Tensor:
 
 
 def counters(device=None) -> dict[str, int]:
-    """The counters of ``device`` (of every device, summed, where None)
-    since the last :func:`reset_counters`; 0 where nothing was counted.
-    Reading them synchronises with the device once."""
+    """K2's counters of ``device`` (of every device, summed, where None)
+    and the host's counters, since the last :func:`reset_counters`; 0
+    where nothing was counted. Reading them synchronises with the device
+    once."""
     keys = (list(_counter_tensors) if device is None
             else [_device_key(device)])
     total = [0] * len(K2_COUNTERS)
@@ -93,13 +109,14 @@ def counters(device=None) -> dict[str, int]:
         t = _counter_tensors.get(key)
         if t is not None:
             total = [a + b for a, b in zip(total, t.sum(0).tolist())]
-    return dict(zip(K2_COUNTERS, total))
+    return {**dict(zip(K2_COUNTERS, total)), **_host_counters}
 
 
 def reset_counters() -> None:
-    """Drop every device's counters: the next counted launch starts them
-    at zero."""
+    """Drop every device's counters, so that the next counted launch
+    starts them at zero, and zero the host's."""
     _counter_tensors.clear()
+    _host_counters.update(dict.fromkeys(HOST_COUNTERS, 0))
 
 
 class Timings:
