@@ -15,7 +15,20 @@ the last join, emit (node, k - bp_since_last_join - 1).
 """
 from __future__ import annotations
 
+import contextlib
+import sys
+
 import numpy as np
+
+
+def _span(name: str):
+    """The port's span ``name`` (utils/profiling.py) where torch is
+    loaded. The host layer does not import torch, and without it no
+    profiler session can be recording."""
+    if "torch" not in sys.modules:
+        return contextlib.nullcontext()
+    from .utils import profiling
+    return profiling.span(name)
 
 
 class CriticalGraphPaths:
@@ -88,6 +101,11 @@ class CriticalGraphPaths:
 
     @classmethod
     def from_graph(cls, graph, k):
+        with _span("build.critical_paths"):
+            return cls._from_graph(graph, k)
+
+    @classmethod
+    def _from_graph(cls, graph, k):
         critical_nodes: list[int] = []
         critical_offsets: list[int] = []
 

@@ -237,16 +237,18 @@ class KmerIndex:
                   "allele_frequencies": _np_dtype(allele_frequencies),
                   "n_kmers": np.dtype(np.uint32),
                   **(dtypes or {})}
-        km = as_device_tensor(kmers, torch.int64, dev)
-        cols = [km, as_device_tensor(nodes, torch.int64, dev),
-                as_device_tensor(ref_offsets, torch.int64, dev),
-                as_device_tensor(allele_frequencies, None, dev)]
-        starts, sizes, (km, nd, ro, af), _ = build_modulo_layout(
-            km % int(modulo), int(modulo), cols)
-        index = cls(km, nd, modulo, ref_offsets=ro, allele_frequencies=af,
-                    hashes_to_index=starts, n_kmers=sizes, dtypes=dtypes)
-        index.set_frequencies(skip_frequencies)
-        return index
+        with profiling.span("kmer_index.build"):
+            km = as_device_tensor(kmers, torch.int64, dev)
+            cols = [km, as_device_tensor(nodes, torch.int64, dev),
+                    as_device_tensor(ref_offsets, torch.int64, dev),
+                    as_device_tensor(allele_frequencies, None, dev)]
+            starts, sizes, (km, nd, ro, af), _ = build_modulo_layout(
+                km % int(modulo), int(modulo), cols)
+            index = cls(km, nd, modulo, ref_offsets=ro,
+                        allele_frequencies=af, hashes_to_index=starts,
+                        n_kmers=sizes, dtypes=dtypes)
+            index.set_frequencies(skip_frequencies)
+            return index
 
     @classmethod
     def from_flat_kmers(cls, flat_kmers, modulo=DEFAULT_MODULO,

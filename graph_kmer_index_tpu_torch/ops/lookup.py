@@ -658,8 +658,9 @@ class DeviceKmerIndex:
             if record_rows(modulo2) * 32 > budget:
                 self._packed_tables = False
             else:
-                self._packed_tables = build_packed(
-                    self.table_kmers, self.table_nodes, modulo2)
+                with profiling.span("lookup.pack"):
+                    self._packed_tables = build_packed(
+                        self.table_kmers, self.table_nodes, modulo2)
         return self._packed_tables or None
 
     def map_kmers(self, queries: torch.Tensor, n_nodes: int) -> torch.Tensor:

@@ -84,9 +84,11 @@ def _run_chunk(chunk):
 def _run_chunk_spans(chunk):
     """Like _run_chunk but returns the finder's COMPACT span
     representation (tape + per-span descriptors) instead of expanded
-    rows — ~30x smaller, for the parent's device-resident finalize."""
+    rows — ~30x smaller, for the parent's device-resident finalize —
+    and, last, the microseconds the walk took."""
     start, stop = chunk
     s = _WORKER_STATE
+    t0 = time.perf_counter()
     finder = DenseKmerFinder(
         s["graph"], s["k"], critical_graph_paths=s["critical_paths"],
         position_id=s["position_id"],
@@ -96,13 +98,15 @@ def _run_chunk_spans(chunk):
         **s["finder_kwargs"])
     finder.find()
     _check_walker(finder)
+    walk_us = int((time.perf_counter() - t0) * 1e6)
     return (finder._tape.get_nparray(),
             finder._span_tape_start.get_nparray(),
             finder._span_n_windows.get_nparray(),
             finder._span_node.get_nparray(),
             finder._span_first_offset.get_nparray(),
             finder._span_nodes_len.get_nparray(),
-            finder._span_nodes.get_nparray())
+            finder._span_nodes.get_nparray(),
+            walk_us)
 
 
 def _run_indexed(args):
@@ -524,87 +528,105 @@ def find_kmers_parallel_device(graph, k, n_workers, critical_paths=None,
     ``tape_bases`` (each expansion's tape length) and
     ``first_result_seconds`` (from the call to the first chunk's return:
     the workers' start-up plus one chunk's walk).
+
+    While a profiler session records (utils/profiling.py), the call is
+    the span ``build.find`` and each expansion ``build.flush``, and it
+    counts ``find.chunks``, ``find.walk_us`` (the walk time each chunk
+    returns; a chunk resumed from a checkpoint, the walk that made it)
+    and ``find.first_result_us``.
     """
-    if finder_kwargs.get("whitelist") is not None:
-        # the whitelist filter is applied at finalize time per window;
-        # the device expansion path doesn't implement it: use the
-        # row-returning path (whose workers filter in-finalize)
-        return find_kmers_parallel(
-            graph, k, n_workers, critical_paths=critical_paths,
-            position_id=position_id, chunks_per_worker=chunks_per_worker,
+    from ..utils import profiling
+
+    with profiling.span("build.find"):
+        if finder_kwargs.get("whitelist") is not None:
+            # the whitelist filter is applied at finalize time per window;
+            # the device expansion path doesn't implement it: use the
+            # row-returning path (whose workers filter in-finalize)
+            return find_kmers_parallel(
+                graph, k, n_workers, critical_paths=critical_paths,
+                position_id=position_id,
+                chunks_per_worker=chunks_per_worker,
+                checkpoint_dir=checkpoint_dir, mp_context=mp_context,
+                require_native=require_native, **finder_kwargs)
+        only_save_one = finder_kwargs.get("only_save_one_node_per_kmer",
+                                          False)
+        only_store_nodes = finder_kwargs.get("only_store_nodes")
+        if critical_paths is None:
+            critical_paths = CriticalGraphPaths.from_graph(graph, k)
+        if position_id is None:
+            from ..graph import PositionId
+            position_id = PositionId.from_graph(graph)
+
+        from ..finder import _dedup_span_nodes
+        from ..ops.finalize import (assemble_group_columns,
+                                    expand_spans_device,
+                                    expand_spans_device_padded)
+
+        pending: dict = {}
+        buffer: list = []
+        state = {"next": 0, "rows": 0, "tape": 0}
+        groups: list = []
+        if stats is None:
+            stats = {}
+        stats.update(groups=0, flush_seconds=0.0, span_rows=0,
+                     tape_bases=[], first_result_seconds=None)
+        t_call = time.perf_counter()
+
+        def _expand_buffer(expand):
+            t0 = time.perf_counter()
+            with profiling.span("build.flush"):
+                tape, nw, s_node, s_off, raw_nl, raw_nodes = \
+                    _merge_span_results(buffer, k)
+                nl, ns, span_nodes, s_af = _dedup_span_nodes(
+                    raw_nl, raw_nodes, graph.allele_frequencies,
+                    only_save_one, only_store_nodes)
+                out = expand(tape, nw, s_node, s_off, nl, span_nodes, s_af,
+                             position_id._start_ids, k, device=device)
+            buffer.clear()
+            state["rows"] = state["tape"] = 0
+            stats["groups"] += 1
+            stats["span_rows"] += int((nw.astype(np.int64) * nl).sum())
+            stats["tape_bases"].append(len(tape))
+            stats["flush_seconds"] += time.perf_counter() - t0
+            return out
+
+        def _flush():
+            groups.append(_expand_buffer(expand_spans_device_padded))
+
+        def _on_result(i, r):
+            if stats["first_result_seconds"] is None:
+                stats["first_result_seconds"] = (time.perf_counter()
+                                                 - t_call)
+                profiling.count("find.first_result_us",
+                                stats["first_result_seconds"] * 1e6)
+            profiling.count("find.chunks")
+            if len(r) > 7:  # an older checkpoint holds no walk time
+                profiling.count("find.walk_us", r[7])
+            pending[i] = r
+            while state["next"] in pending:
+                r2 = pending.pop(state["next"])
+                state["next"] += 1
+                buffer.append(r2)
+                state["tape"] += len(r2[0])
+                # dedup can only shrink node lists: raw product is a safe
+                # upper bound for the flush threshold
+                state["rows"] += int(np.sum(r2[2].astype(np.int64)
+                                            * r2[5].astype(np.int64)))
+            if (state["rows"] >= stream_rows_target
+                    or state["tape"] >= stream_tape_target):
+                _flush()
+
+        _, position_id = _find_pooled(
+            _run_chunk_spans, graph, k, n_workers, critical_paths,
+            position_id, chunks_per_worker, finder_kwargs,
             checkpoint_dir=checkpoint_dir, mp_context=mp_context,
-            require_native=require_native, **finder_kwargs)
-    only_save_one = finder_kwargs.get("only_save_one_node_per_kmer", False)
-    only_store_nodes = finder_kwargs.get("only_store_nodes")
-    if critical_paths is None:
-        critical_paths = CriticalGraphPaths.from_graph(graph, k)
-    if position_id is None:
-        from ..graph import PositionId
-        position_id = PositionId.from_graph(graph)
+            on_result=_on_result, require_native=require_native)
+        assert not pending, "chunk stream ended with a gap in the prefix"
 
-    from ..finder import _dedup_span_nodes
-    from ..ops.finalize import (assemble_group_columns,
-                                expand_spans_device,
-                                expand_spans_device_padded)
+        if not groups:
+            # one expansion of the whole (small runs / tests)
+            return FlatKmers(*_expand_buffer(expand_spans_device))
 
-    pending: dict = {}
-    buffer: list = []
-    state = {"next": 0, "rows": 0, "tape": 0}
-    groups: list = []
-    if stats is None:
-        stats = {}
-    stats.update(groups=0, flush_seconds=0.0, span_rows=0, tape_bases=[],
-                 first_result_seconds=None)
-    t_call = time.perf_counter()
-
-    def _expand_buffer(expand):
-        t0 = time.perf_counter()
-        tape, nw, s_node, s_off, raw_nl, raw_nodes = _merge_span_results(
-            buffer, k)
-        nl, ns, span_nodes, s_af = _dedup_span_nodes(
-            raw_nl, raw_nodes, graph.allele_frequencies,
-            only_save_one, only_store_nodes)
-        out = expand(tape, nw, s_node, s_off, nl, span_nodes, s_af,
-                     position_id._start_ids, k, device=device)
-        buffer.clear()
-        state["rows"] = state["tape"] = 0
-        stats["groups"] += 1
-        stats["span_rows"] += int((nw.astype(np.int64) * nl).sum())
-        stats["tape_bases"].append(len(tape))
-        stats["flush_seconds"] += time.perf_counter() - t0
-        return out
-
-    def _flush():
-        groups.append(_expand_buffer(expand_spans_device_padded))
-
-    def _on_result(i, r):
-        if stats["first_result_seconds"] is None:
-            stats["first_result_seconds"] = time.perf_counter() - t_call
-        pending[i] = r
-        while state["next"] in pending:
-            r2 = pending.pop(state["next"])
-            state["next"] += 1
-            buffer.append(r2)
-            state["tape"] += len(r2[0])
-            # dedup can only shrink node lists: raw product is a safe
-            # upper bound for the flush threshold
-            state["rows"] += int(np.sum(r2[2].astype(np.int64)
-                                        * r2[5].astype(np.int64)))
-        if (state["rows"] >= stream_rows_target
-                or state["tape"] >= stream_tape_target):
+        if buffer:
             _flush()
-
-    _, position_id = _find_pooled(
-        _run_chunk_spans, graph, k, n_workers, critical_paths, position_id,
-        chunks_per_worker, finder_kwargs, checkpoint_dir=checkpoint_dir,
-        mp_context=mp_context, on_result=_on_result,
-        require_native=require_native)
-    assert not pending, "chunk stream ended with a gap in the prefix"
-
-    if not groups:
-        # one expansion of the whole (small runs / tests)
-        return FlatKmers(*_expand_buffer(expand_spans_device))
-
-    if buffer:
-        _flush()
-    return FlatKmers(*assemble_group_columns(groups))
+        return FlatKmers(*assemble_group_columns(groups))

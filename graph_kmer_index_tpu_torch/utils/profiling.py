@@ -21,6 +21,17 @@ one above it:
       read_kmers.upload        the tape segment to the device
       read_kmers.hash          K1 and the reverse complements
 
+The dense build's spans (``CriticalGraphPaths.from_graph`` through the
+packed table):
+
+    build.critical_paths       CriticalGraphPaths.from_graph
+    build.find                 parallel.host_pool.find_kmers_parallel_device,
+                               the whole streamed find
+      build.flush              one device expansion of the finished chunks
+    kmer_index.build           KmerIndex.from_rows: the bucket layout and
+                               the frequencies
+    lookup.pack                DeviceKmerIndex.packed: the packed table
+
 Counters (:func:`counters`): K2 adds, per launch while a session records,
 ``k2.queries`` (valid queries whose bucket lies in the table or its
 shard), ``k2.pending`` (those the record's lanes could not answer, left
@@ -31,7 +42,12 @@ the first counted launch, and come to the host only when read. Beside
 them, on the host, the pool of pinned count blocks
 (``ops/host_buffers.py``) adds ``host_counts.reused`` (a block answered
 from the free list) and ``host_counts.allocated`` (a block that had to
-be mapped and pinned).
+be mapped and pinned). The pooled find adds, per call of
+``find_kmers_parallel_device``, ``find.chunks`` (chunk results
+delivered), ``find.walk_us`` (microseconds the workers spent walking
+them, which each chunk returns with its result) and
+``find.first_result_us`` (microseconds from the call to the first
+result: the workers' start-up and one chunk's walk).
 """
 from __future__ import annotations
 
@@ -45,7 +61,8 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 K2_COUNTERS = ("k2.queries", "k2.pending", "k2.scan_rows", "k2.scan_matches")
-HOST_COUNTERS = ("host_counts.reused", "host_counts.allocated")
+HOST_COUNTERS = ("host_counts.reused", "host_counts.allocated",
+                 "find.chunks", "find.walk_us", "find.first_result_us")
 # copies of the counters that K2's blocks add to in turn
 # (csrc/packed_lookup.cu: kStatStripes), so that no one address takes
 # every block's atomics
@@ -71,11 +88,12 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
-def count(name: str) -> None:
-    """Add one to the host counter ``name`` while a session records."""
+def count(name: str, amount: int = 1) -> None:
+    """Add ``amount`` to the host counter ``name`` while a session
+    records."""
     if active():
         with _host_counters_lock:
-            _host_counters[name] += 1
+            _host_counters[name] += int(amount)
 
 
 def _device_key(device) -> torch.device:
