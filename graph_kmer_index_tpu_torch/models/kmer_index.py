@@ -542,7 +542,16 @@ class KmerIndex:
     # -- batched queries -------------------------------------------------------
 
     def _queries(self, kmers) -> torch.Tensor:
+        """The queries as int64 on the index's device, uint64 bits kept.
+        Host queries bound for a CUDA device go through its staging ring
+        of pinned blocks (ops/host_buffers.py: ``upload``); a tensor
+        already on a device is used as it is, and a CPU index reads a host
+        array in place."""
         with profiling.span("kmer_index.upload"):
+            if self.device.type == "cuda" and not (
+                    isinstance(kmers, torch.Tensor)
+                    and kmers.device.type != "cpu"):
+                return host_buffers.upload(kmers, self.device)
             if not isinstance(kmers, torch.Tensor):
                 kmers = np.asarray(kmers, dtype=np.uint64)
             return as_device_tensor(kmers, torch.int64, self.device)

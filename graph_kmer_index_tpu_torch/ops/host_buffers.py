@@ -1,4 +1,5 @@
-"""Pinned host blocks for results that come back from the card.
+"""Pinned host blocks for results that come back from the card, and a
+ring of pinned blocks through which host queries go to it.
 
 ``KmerIndex.map_kmers`` copies its node counts (2.1 GB on a whole-genome
 signature index) to the host once a call. Into a fresh pageable array that
@@ -27,9 +28,26 @@ collector may run at any point, in any thread, also inside :meth:`take`.
 A returned block is queued on a deque (one atomic append) and moved to the
 free list by whoever can take the pool's lock without waiting; the holder
 of the lock moves what was queued meanwhile before it is done.
+
+:func:`upload` sends a host array of hashes to the card through a
+:class:`StagingRing`: :data:`STAGE_BLOCKS` reused pinned blocks of
+:data:`STAGE_BYTES` a device, each with the CUDA event recorded after its
+last copy to the card. The host copies a chunk of the caller's array into
+a block (torch's CPU ``copy_``, spread over the process's intra-op
+threads) while the card takes the chunk before it from another block, so
+the upload runs at the host's threaded copy rate and not at the rate of
+CUDA's one-thread staging of pageable memory. The ring's blocks are
+not the pool's: they are made at the ring's first upload and kept for the
+life of the process, and they take nothing from the pool's free list.
+Nor are they PyTorch's caching host allocator's, which never waits for a
+block: where no freed block's copy has completed it pins a new one and
+keeps it, so its pinned memory would grow with whatever the stream has
+queued ahead of the copies, up to the whole query. The ring holds its
+blocks and no more, and waits for the next one in turn instead.
 """
 from __future__ import annotations
 
+import contextlib
 import mmap
 import threading
 import weakref
@@ -42,6 +60,13 @@ from ..utils import profiling
 
 # free blocks the pool keeps at most
 MAX_FREE = 2
+# the staging ring of a device: its blocks, and the bytes of each. The
+# host of an H100 80GB HBM3 (8 CPUs) copies into a pinned block fastest at
+# 16 MiB: 21-33 GB/s on its 8 threads (4-6 GB/s on one), against 13-29
+# GB/s at 8 or 32 MiB; the link takes 43-49 GB/s, so the host's copy sets
+# the pace and a block is free again before its turn comes
+STAGE_BLOCKS = 4
+STAGE_BYTES = 16 << 20
 # a mapping of at least this many bytes is a whole number of them: the
 # CUDA pins 2.12 GB so in 0.34-0.42 s, at the exact size in 1.16-1.21 s
 # (the host of an H100 80GB HBM3)
@@ -137,3 +162,113 @@ class HostBlockPool:
 
 _POOL = HostBlockPool()
 take = _POOL.take
+
+
+def _host_int64(array) -> torch.Tensor:
+    """``array`` as a CPU tensor whose int64 elements hold the bits that
+    ``as_device_tensor`` uploads: a tensor as it is (a copy into int64
+    converts it as ``.to(torch.int64)`` would), a uint64 or int64 numpy
+    array read in place as a view (a copy only where a stride is negative
+    or not a whole number of elements, as in a field of a record array),
+    anything else made a uint64 array first."""
+    if isinstance(array, torch.Tensor):
+        return array
+    if not (isinstance(array, np.ndarray)
+            and array.dtype in (np.uint64, np.int64)):
+        array = np.asarray(array, dtype=np.uint64)
+    if any(s < 0 or s % array.itemsize for s in array.strides):
+        array = array.copy()
+    return torch.from_numpy(array.view(np.int64))
+
+
+class _Ready:
+    """A CPU ring's event: a copy to the CPU is done when it returns."""
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+    def record(self, stream=None) -> None:
+        pass
+
+
+class StagingRing:
+    """:data:`STAGE_BLOCKS` reused host blocks of :data:`STAGE_BYTES` each
+    (as the module sets them when the ring is made), and the event recorded
+    after each block's last copy to ``device``; pinned for a CUDA device,
+    pageable for the CPU. The blocks are made at the first upload and
+    kept."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.n_blocks = STAGE_BLOCKS
+        self.chunk = STAGE_BYTES // 8  # int64 elements a block holds
+        self._blocks: list[_Block] = []
+        self._staging: list[torch.Tensor] = []
+        self._events: list = []
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def _event(self):
+        return torch.cuda.Event() if self.device.type == "cuda" else _Ready()
+
+    def _make_blocks(self) -> None:
+        cuda = self.device.type == "cuda"
+        with (torch.cuda.device(self.device) if cuda
+              else contextlib.nullcontext()):
+            for _ in range(self.n_blocks):
+                block = _Block(self.chunk * 8, pin=cuda)
+                self._blocks.append(block)
+                self._staging.append(torch.from_numpy(np.frombuffer(
+                    block.memory, np.int64, count=self.chunk)))
+                self._events.append(self._event())
+
+    def upload(self, array) -> torch.Tensor:
+        """``array`` (see :func:`_host_int64`) as an int64 tensor of its
+        shape on the ring's device. Its elements go in order, in chunks of
+        a block: wait for the event of the block next in turn (its last
+        copy may still be in flight, from this call or an earlier one),
+        copy the chunk into it on the host, copy it on to its place in the
+        result on the device's current stream without waiting, and record
+        the block's event. Returns without waiting for the card: work on
+        the current stream follows the copies in order."""
+        host = _host_int64(array)
+        flat = host.reshape(-1)
+        n = flat.shape[0]
+        out = torch.empty(n, dtype=torch.int64, device=self.device)
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        with self._lock:
+            if not self._blocks:
+                self._make_blocks()
+            for start in range(0, n, self.chunk):
+                m = min(self.chunk, n - start)
+                k = self._next
+                self._next = (k + 1) % self.n_blocks
+                event, block = self._events[k], self._staging[k][:m]
+                if not event.query():
+                    profiling.count("upload.ring_waits")
+                    event.synchronize()
+                block.copy_(flat[start:start + m])
+                out[start:start + m].copy_(block, non_blocking=True)
+                event.record(stream)
+        profiling.count("upload.staged_bytes", n * 8)
+        return out.view(host.shape)
+
+
+_RINGS: dict[torch.device, StagingRing] = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def upload(array, device) -> torch.Tensor:
+    """``array`` (a host array of hashes, see :func:`_host_int64`) as an
+    int64 tensor on ``device``, through that device's staging ring, made
+    at first use (:meth:`StagingRing.upload`)."""
+    device = profiling._device_key(device)
+    with _RINGS_LOCK:
+        ring = _RINGS.get(device)
+        if ring is None:
+            ring = _RINGS[device] = StagingRing(device)
+    return ring.upload(array)

@@ -12,6 +12,7 @@ one above it:
 
     kmer_index.map_kmers       KmerIndex.map_kmers, the whole call
       kmer_index.upload        KmerIndex._queries: the queries to the device
+                               (through the staging ring, host_buffers.upload)
       lookup.k2                ops.lookup.packed_lookup on CUDA: the counts'
                                zeroing and K2's launch (host time only)
       kmer_index.counts_to_host  the wait for K2 and the counts' copy
@@ -42,7 +43,10 @@ the first counted launch, and come to the host only when read. Beside
 them, on the host, the pool of pinned count blocks
 (``ops/host_buffers.py``) adds ``host_counts.reused`` (a block answered
 from the free list) and ``host_counts.allocated`` (a block that had to
-be mapped and pinned). The pooled find adds, per call of
+be mapped and pinned), and its staging ring of uploads adds
+``upload.staged_bytes`` (query bytes that went through the ring) and
+``upload.ring_waits`` (times the host found the copy to the card of the
+block next in turn unfinished). The pooled find adds, per call of
 ``find_kmers_parallel_device``, ``find.chunks`` (chunk results
 delivered), ``find.walk_us`` (microseconds the workers spent walking
 them, which each chunk returns with its result) and
@@ -62,7 +66,8 @@ import torch.autograd.profiler as _autograd_profiler
 
 K2_COUNTERS = ("k2.queries", "k2.pending", "k2.scan_rows", "k2.scan_matches")
 HOST_COUNTERS = ("host_counts.reused", "host_counts.allocated",
-                 "find.chunks", "find.walk_us", "find.first_result_us")
+                 "find.chunks", "find.walk_us", "find.first_result_us",
+                 "upload.staged_bytes", "upload.ring_waits")
 # copies of the counters that K2's blocks add to in turn
 # (csrc/packed_lookup.cu: kStatStripes), so that no one address takes
 # every block's atomics
