@@ -12,6 +12,10 @@ stay as they were given (numpy arrays from a file, tensors from
 (``from_arrays``) serves map/has through the packed path, which does not
 need the rows in bucket order.
 
+The query views (``device_index``, the native view) take the columns when
+they are made and keep no reference to the index; every mutator ends in
+``_invalidate_query_caches``, which makes them anew.
+
 The query results are numpy arrays in the dtypes the JAX package returns:
 each column's own dtype as it was given (``dtypes``), frequencies as
 uint16 once ``set_frequencies`` has computed them.
@@ -33,7 +37,7 @@ from ..hashing import (kmer_hashes_to_complement_hashes,
                        kmer_hashes_to_reverse_complement_hash)
 from ..ops import host_buffers
 from ..ops.encode import revcomp_hashes
-from ..ops.lookup import (DeviceKmerIndex, _bucket_hits, as_device_tensor)
+from ..ops.lookup import DeviceKmerIndex, as_device_tensor
 from ..read_kmers import DeviceReadKmers
 from ..utils import profiling
 from ..utils.hugepages import hp_empty, hp_zeros
@@ -173,8 +177,7 @@ class KmerIndex:
         for name in _COLUMNS:
             self.dtypes[name] = _np_dtype(getattr(self, name))
         self.dtypes.update(dtypes or {})
-        self.device_index = DeviceKmerIndex(self)
-        self._native_index = None
+        self._invalidate_query_caches()
 
     @classmethod
     def from_arrays(cls, kmers, nodes, modulo, device,
@@ -270,8 +273,8 @@ class KmerIndex:
             flat_kmers._allele_frequencies, modulo, device=device,
             skip_frequencies=skip_frequencies, dtypes=dtypes)
         if skip_singletons:
-            index._invalidate_query_caches()
             index.frequencies = (index.frequencies + 1) & 0xFFFF
+            index._invalidate_query_caches()
         return index
 
     def _file_column(self, name: str):
@@ -314,34 +317,37 @@ class KmerIndex:
 
     def _invalidate_query_caches(self) -> None:
         """A fresh device view, and no native view, after a column
-        changes, so that no query reads a stale copy."""
-        self.device_index = DeviceKmerIndex(self)
+        changes: the views hold the columns they were made from, so no
+        query reads a stale copy. Every mutator ends here; a cleared
+        index has no views."""
+        self.device_index = (None if self.kmers is None
+                             else DeviceKmerIndex(self))
         self._native_index = None
 
     def set_frequencies(self, skip=False) -> None:
         """Frequencies by distinct ref offsets, computed on the index's
         device (zeros with ``skip``); uint16 values, as in the JAX
         package."""
-        self._invalidate_query_caches()
         self.dtypes["frequencies"] = np.dtype(np.uint16)
         if skip:
             self.frequencies = torch.zeros(self.kmers.shape[0],
                                            dtype=torch.int32,
                                            device=self.device)
-            return
-        self.frequencies = frequencies_by_distinct_ref_offsets(
-            self.kmers,
-            as_device_tensor(self.ref_offsets, torch.int64, self.device))
+        else:
+            self.frequencies = frequencies_by_distinct_ref_offsets(
+                self.kmers,
+                as_device_tensor(self.ref_offsets, torch.int64, self.device))
+        self._invalidate_query_caches()
 
     def remove_ref_offsets(self) -> None:
-        self._invalidate_query_caches()
         self.ref_offsets = np.array([0])
         self.dtypes["ref_offsets"] = self.ref_offsets.dtype
+        self._invalidate_query_caches()
 
     def remove_frequencies(self) -> None:
-        self._invalidate_query_caches()
         self.frequencies = np.array([0])
         self.dtypes["frequencies"] = self.frequencies.dtype
+        self._invalidate_query_caches()
 
     def max_node_id(self) -> int:
         return int(self.nodes.max())
@@ -360,10 +366,10 @@ class KmerIndex:
         idx = torch.searchsorted(unique, self.kmers).cpu().numpy()
         dtype = (self.dtypes["frequencies"] if np.ndim(self.frequencies)
                  else np.dtype(np.uint16))
-        self._invalidate_query_caches()
         self.frequencies = np.maximum(
             min_frequency, freqs[idx] * multiplier).astype(dtype)
         self.dtypes["frequencies"] = dtype
+        self._invalidate_query_caches()
 
     def set_allele_frequencies(self, frequencies) -> None:
         pass  # reference no-op (collision_free_kmer_index.py:234-235)
@@ -385,14 +391,12 @@ class KmerIndex:
         self.nodes = None
         self.kmers = None
         self.modulo = None
-        self.device_index = None
-        self._native_index = None
+        self._invalidate_query_caches()
 
     def convert_to_int32(self) -> None:
         """Bucket tables and nodes as int32 (in every result and file;
         the node column on the device stays int64, which the lookup
         kernel reads)."""
-        self._invalidate_query_caches()
         for name in ("hashes_to_index", "n_kmers"):
             col = getattr(self, name)
             setattr(self, name, col.to(torch.int32)
@@ -400,6 +404,7 @@ class KmerIndex:
                     else np.asarray(col).astype(np.int32))
         for name in ("hashes_to_index", "n_kmers", "nodes"):
             self.dtypes[name] = np.dtype(np.int32)
+        self._invalidate_query_caches()
 
     def get_kmers(self) -> np.ndarray:
         return self._file_column("kmers")
@@ -479,22 +484,6 @@ class KmerIndex:
                 f += int(rhits[2][0])
         return f
 
-    def _first_frequencies(self, q: torch.Tensor) -> torch.Tensor:
-        """int64 frequency of the FIRST row that holds each query k-mer
-        (0 for a miss), from the bucket ranges on the index's device:
-        plain torch, no column leaves the device."""
-        dev = self.device_index
-        ids, rows = _bucket_hits(q, dev.table_kmers, dev.starts_tbl,
-                                 dev.sizes_tbl, dev.modulo)
-        n_rows = int(self.kmers.shape[0])
-        first = torch.full((q.shape[0],), n_rows, dtype=torch.int64,
-                           device=q.device)
-        first.scatter_reduce_(0, ids, rows, "amin")
-        hit = first < n_rows
-        out = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
-        out[hit] = dev.table_frequencies[first[hit]].to(torch.int64)
-        return out
-
     def get_frequencies(self, kmers, include_reverse_complement=True,
                         k=31, backend=None) -> np.ndarray:
         """:meth:`get_frequency` of a batch (a tensor or a numpy array of
@@ -513,9 +502,10 @@ class KmerIndex:
             backend = ("native" if self.device.type == "cpu"
                        and self._native() is not None else "device")
         if backend == "device":
-            freqs = self._first_frequencies(q)
+            first_frequencies = self.device_index.first_frequencies
+            freqs = first_frequencies(q)
             if include_reverse_complement:
-                freqs = freqs + self._first_frequencies(revcomp_hashes(q, k))
+                freqs = freqs + first_frequencies(revcomp_hashes(q, k))
             return freqs.cpu().numpy()
         if backend != "native":
             raise ValueError(f"unknown backend {backend!r}")

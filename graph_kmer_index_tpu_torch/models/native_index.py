@@ -9,13 +9,16 @@ this class serves host-resident pipelines (``map_reads -b native``, the
 frequency scoring of an index that lies on the CPU) and is the exact
 behavioural spec for the device lookup (the tests assert equality).
 
-Marshalling is lazy and copy-averse: each table is taken from the index
-at first use and kept. A column of a CPU index is read where it lies
-(``Tensor.numpy()`` shares the memory; int64 k-mer bits are viewed as
-uint64, int32 bucket tables are passed to C at their width, int32 sizes
-viewed as uint32); a column on a CUDA device is copied to the host once.
-The index drops this view whenever a column changes
+The view takes the index's columns when it is made
+(ops.lookup.index_columns) and keeps no reference to the index, which
+drops the view whenever a column changes
 (KmerIndex._invalidate_query_caches), so no stale copy is read.
+Marshalling is lazy and copy-averse: each host table is made from those
+columns at first use and kept. A column of a CPU index is read where it
+lies (``Tensor.numpy()`` shares the memory; int64 k-mer bits are viewed
+as uint64, int32 bucket tables are passed to C at their width, int32
+sizes viewed as uint32); a column on a CUDA device is copied to the host
+once.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import numpy as np
 
 from .. import native
 from ..flat_kmers import host_column
+from ..ops.lookup import index_columns, internal_modulo
 from ..utils.hugepages import hp_empty
 
 
@@ -51,12 +55,12 @@ class NativeKmerIndex:
     """Wraps a KmerIndex's columns for native batched lookup."""
 
     def __init__(self, index):
-        self._index = index
-        self.modulo = int(index.modulo)
+        self._columns = index_columns(index)
+        self.modulo = int(self._columns.modulo)
 
     @property
     def _n(self) -> int:
-        return int(self._index.kmers.shape[0])
+        return int(self._columns.kmers.shape[0])
 
     def _row_table(self, value, dtype) -> np.ndarray:
         """Host-marshal a per-row table; anything that is not a length-n
@@ -70,37 +74,37 @@ class NativeKmerIndex:
 
     @cached_property
     def table_kmers(self) -> np.ndarray:
-        return _host_contig(self._index.kmers, np.uint64)
+        return _host_contig(self._columns.kmers, np.uint64)
 
     @cached_property
     def table_nodes(self) -> np.ndarray:
-        return _host_contig(self._index.nodes, np.uint32)
+        return _host_contig(self._columns.nodes, np.uint32)
 
     @cached_property
     def table_ref_offsets(self) -> np.ndarray:
-        return self._row_table(self._index.ref_offsets, np.uint64)
+        return self._row_table(self._columns.ref_offsets, np.uint64)
 
     @cached_property
     def table_frequencies(self) -> np.ndarray:
-        return self._row_table(self._index.frequencies, np.uint16)
+        return self._row_table(self._columns.frequencies, np.uint16)
 
     @cached_property
     def table_allele_frequencies(self) -> np.ndarray:
-        return self._row_table(self._index.allele_frequencies, np.float32)
+        return self._row_table(self._columns.allele_frequencies, np.float32)
 
     @cached_property
     def starts_tbl(self) -> np.ndarray:
         # int32 (the device build's layout) passes through at native
         # width — native._starts_args dispatches to the *32 C entry
         # points; only exotic dtypes pay the int64 widening
-        a = host_column(self._index.hashes_to_index)
+        a = host_column(self._columns.hashes_to_index)
         if a.dtype in (np.int32, np.int64) and a.flags.c_contiguous:
             return a
         return _host_contig(a, np.int64)
 
     @cached_property
     def sizes_tbl(self) -> np.ndarray:
-        return _host_contig(self._index.n_kmers, np.uint32)
+        return _host_contig(self._columns.n_kmers, np.uint32)
 
     @staticmethod
     def available() -> bool:
@@ -164,9 +168,6 @@ class NativeKmerIndex:
         """Host packed-record tables (same layout as ops/lookup.py): one
         cache miss per query plus a prefetch pipeline."""
         if getattr(self, "_packed_np", None) is None:
-            # the next prime >= max(67, 2n + 1); ops.lookup computes the
-            # same, but imports torch
-            from ..ops.lookup import internal_modulo
             n = len(self.table_kmers)
             modulo2 = internal_modulo(n)
             if modulo2 * 32 > self.PACKED_BYTE_BUDGET:

@@ -548,9 +548,33 @@ def as_device_tensor(value, dtype: torch.dtype,
     return value.to(device, dtype)
 
 
+class IndexColumns(NamedTuple):
+    """The columns of a KmerIndex (models.kmer_index) that its query views
+    read, as the index holds them when the view is made. kmers and nodes
+    are int64 tensors on the index's device; every other column is a
+    tensor, a numpy array, a placeholder or None."""
+    kmers: torch.Tensor
+    nodes: torch.Tensor
+    modulo: int
+    ref_offsets: object
+    frequencies: object
+    allele_frequencies: object
+    hashes_to_index: object
+    n_kmers: object
+
+
+def index_columns(index) -> IndexColumns:
+    """The columns of ``index`` that a query view reads: the one place
+    that names the index's attributes."""
+    return IndexColumns(*(getattr(index, name)
+                          for name in IndexColumns._fields))
+
+
 class DeviceKmerIndex:
     """Device view of a KmerIndex (models.kmer_index): the packed-record
     lookup, the CSR bucket scan and ``get_batched``, on the index's device.
+    It takes the index's columns once (:func:`index_columns`) and keeps no
+    reference to the index, which makes a new view after a column changes.
 
     Columns move to the device LAZILY, per query path, as in the JAX
     package: the packed map/has path reads only kmers and nodes; the
@@ -581,11 +605,11 @@ class DeviceKmerIndex:
     # the device (packed_byte_budget)
     PACKED_BYTE_BUDGET = None
 
-    def __init__(self, host_index):
-        self._host = host_index
+    def __init__(self, index):
+        self._columns = index_columns(index)
         self._cache = {}
-        self.device = host_index.device
-        self.modulo = int(host_index.modulo)
+        self.device = self._columns.kmers.device
+        self.modulo = int(self._columns.modulo)
         self._max_scan = None
         self._packed_tables = None
 
@@ -595,8 +619,8 @@ class DeviceKmerIndex:
             raise AttributeError(name)
         if name not in self._cache:
             attr, dtype = spec
-            value = getattr(self._host, attr)
-            n = int(self._host.kmers.shape[0])
+            value = getattr(self._columns, attr)
+            n = int(self._columns.kmers.shape[0])
             if name in self._ZERO_IF_PLACEHOLDER and (
                     value is None or np.ndim(value) == 0
                     or np.shape(value)[0] != n):
@@ -619,8 +643,8 @@ class DeviceKmerIndex:
                     and col.device == self.device)
 
         return ("starts_tbl" in self._cache
-                or (on_device(self._host.hashes_to_index)
-                    and on_device(self._host.n_kmers))
+                or (on_device(self._columns.hashes_to_index)
+                    and on_device(self._columns.n_kmers))
                 or self.modulo * 12 <= self.BUCKET_TABLE_BYTE_BUDGET)
 
     @property
@@ -637,10 +661,10 @@ class DeviceKmerIndex:
 
     @property
     def max_scan(self) -> int:
-        """The deepest bucket's size (at least 1), from the host's sizes
+        """The deepest bucket's size (at least 1), from the index's sizes
         column, without moving it."""
         if self._max_scan is None:
-            sizes = self._host.n_kmers
+            sizes = self._columns.n_kmers
             if sizes is None:
                 raise ValueError("the index has no n_kmers column")
             self._max_scan = (max(1, int(sizes.max())) if len(sizes)
@@ -651,7 +675,7 @@ class DeviceKmerIndex:
         """The packed tables, built at first use; None when the records
         exceed PACKED_BYTE_BUDGET, and then map/has take the CSR path."""
         if self._packed_tables is None:
-            modulo2 = internal_modulo(int(self._host.kmers.shape[0]))
+            modulo2 = internal_modulo(int(self._columns.kmers.shape[0]))
             budget = (packed_byte_budget(self.device)
                       if self.PACKED_BYTE_BUDGET is None
                       else self.PACKED_BYTE_BUDGET)
@@ -714,3 +738,18 @@ class DeviceKmerIndex:
                             self.table_ref_offsets, self.table_frequencies,
                             self.table_allele_frequencies, start, size,
                             hit_cap, frequency_cap)
+
+    def first_frequencies(self, q: torch.Tensor) -> torch.Tensor:
+        """int64 frequency of the FIRST row that holds each query k-mer
+        (0 for a miss), from the bucket ranges on this view's device:
+        plain torch, no column leaves the device."""
+        ids, rows = _bucket_hits(q, self.table_kmers, self.starts_tbl,
+                                 self.sizes_tbl, self.modulo)
+        n_rows = int(self._columns.kmers.shape[0])
+        first = torch.full((q.shape[0],), n_rows, dtype=torch.int64,
+                           device=q.device)
+        first.scatter_reduce_(0, ids, rows, "amin")
+        hit = first < n_rows
+        out = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+        out[hit] = self.table_frequencies[first[hit]].to(torch.int64)
+        return out

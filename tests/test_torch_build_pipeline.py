@@ -195,7 +195,6 @@ def test_slice_graph_to_read_counts(mp_context):
     assert np.array_equal(index.has_kmers(queries),
                           np.asarray(want.has_kmers(queries)))
     # and through the CSR path over the built bucket tables
-    index.device_index.PACKED_BYTE_BUDGET = 0
     index._invalidate_query_caches()
     index.device_index.PACKED_BYTE_BUDGET = 0
     assert np.array_equal(index.map_kmers(queries, n_nodes), got)

@@ -215,9 +215,10 @@ def test_csr_map_and_has_match_jax(modulo):
 
 def _tables_to_host(index):
     """The bucket tables as numpy arrays, as KmerIndex.from_file leaves
-    them."""
+    them; the index makes its views anew from them."""
     index.hashes_to_index = index.hashes_to_index.numpy()
     index.n_kmers = index.n_kmers.numpy()
+    index._invalidate_query_caches()
 
 
 # -- get_batched ------------------------------------------------------------------------
@@ -241,6 +242,7 @@ def test_get_batched_matches_jax(modulo, route, caps):
     if route == "searchsorted":
         # host tables (an index read from a file) over the budget
         _tables_to_host(port)
+        port_dev = port.device_index
         jax_dev.BUCKET_TABLE_BYTE_BUDGET = 0
         port_dev.BUCKET_TABLE_BYTE_BUDGET = 0
     assert jax_dev._bucket_tables_cheap() == (route == "tables")
