@@ -8,9 +8,10 @@
 2. Builds the hand-written kernels from the checkout's sources (one nvcc
    per source, all at once): K1 (csrc/sliding_hash.cu), K2
    (csrc/packed_lookup.cu), K3 (csrc/sliding_pack.cu), K4 and K5
-   (csrc/stream.cu), K6-K8 (csrc/probes.cu); and the native host library
-   (g++ over csrc/host/gki.cpp and walker.cpp), which it requires: the
-   reads' parse and the build path's walk run in it.
+   (csrc/stream.cu), K6-K8 (csrc/probes.cu), K9 (csrc/rolled_decode.cu);
+   and the native host library (g++ over csrc/host/gki.cpp, walker.cpp
+   and rolled.cpp), which it requires: the reads' parse, the build path's
+   walk and the rolled upload's encoder run in it.
 3. Holds K1 against its plain PyTorch twin on the card (bit-exact).
 4. Drives the read-mapping path at chromosome scale, all from --seed: a
    150 Mb genome with planted repeats (a poly-A run, 0.5% copied
@@ -42,6 +43,13 @@
    launches are shorter than a Python call: theirs is the device's own
    time on cold indices (step 9), with ``warm_ms``, ``host_call_ms`` and
    ``events_ms`` beside it.
+   Then the upload path (its launches counted from 0): the first
+   UPLOAD_QUERIES read k-mers of step 4, one chunk of the staging ring's
+   rolled upload, are encoded on the host into the rolled form
+   (ops/rolled.py, native), copied to the card and decoded there by K9
+   and by its plain twin; both must equal the read k-mers bit for bit,
+   and K9 is timed against the twin, its bound the form read once and 8
+   bytes a query written.
 8. The hashing path. Holds K3 (P16 and P8) against its twin, bit-exact,
    on 2^26 random bases and on lengths 1, 31 and 1,000,003, for k in
    PACK_KS. Then drives the path on the main path's genome: the k = 31
@@ -217,7 +225,7 @@ from graph_kmer_index_tpu_torch.hashing import (  # noqa: E402
     kmer_hashes_to_reverse_complement_hash, sliding_window_hashes)
 from graph_kmer_index_tpu_torch.ops import _kernels  # noqa: E402
 from graph_kmer_index_tpu_torch.ops import (  # noqa: E402
-    encode, lookup, primitives)
+    encode, host_buffers, lookup, primitives, rolled)
 from graph_kmer_index_tpu_torch.parallel import (  # noqa: E402
     checkpoint, mesh, oocbuild, sharded)
 from graph_kmer_index_tpu_torch.parallel.host_pool import (  # noqa: E402
@@ -231,6 +239,7 @@ K2_SOURCE = "graph_kmer_index_tpu_torch/csrc/packed_lookup.cu"
 K3_SOURCE = "graph_kmer_index_tpu_torch/csrc/sliding_pack.cu"
 K45_SOURCE = "graph_kmer_index_tpu_torch/csrc/stream.cu"
 K678_SOURCE = "graph_kmer_index_tpu_torch/csrc/probes.cu"
+K9_SOURCE = "graph_kmer_index_tpu_torch/csrc/rolled_decode.cu"
 K1_REPLACES = "graph_kmer_index_tpu/ops/encode.py:133"
 K2_REPLACES = "graph_kmer_index_tpu/ops/lookup.py:349"
 K3_REPLACES = "graph_kmer_index_tpu/ops/encode.py:242"
@@ -239,6 +248,7 @@ K5_REPLACES = "benchmarks/bench_primitives.py:369"
 K6_REPLACES = "benchmarks/bench_primitives.py:140"
 K7_REPLACES = "benchmarks/bench_primitives.py:182"
 K8_REPLACES = "benchmarks/bench_primitives.py:224"
+K9_REPLACES = "none: the JAX package uploads its queries whole"
 K = 31
 READ_LEN = 150
 PACK_KS = (1, 5, 8, 9, 12, 15, 16, 17, 21, 31)
@@ -246,6 +256,7 @@ READ_MAPPING_KERNELS = ("sliding_hash", "packed_lookup")
 HASHING_KERNELS = ("sliding_pack_p16", "sliding_pack_p8", "stream_copy",
                    "stream_sum")
 LOOKUP_KERNELS = ("gather_loop", "rmw_loop", "bcast_cmp")
+UPLOAD_KERNELS = ("rolled_decode",)
 BUILD_KERNELS = ("sliding_hash", "packed_lookup")
 SIGNATURE_KERNELS = ("sliding_hash", "packed_lookup")
 SHARDED_KERNELS = ("sliding_hash", "packed_lookup")
@@ -286,6 +297,8 @@ GRAPH_ARRAYS = ("sequence", "node_sizes", "seq_start", "edge_targets",
 BUILD_WORKERS = 4
 STREAM_TARGET = 24_000_000
 CHECK_MODULO = 15_485_863
+# the upload path: the read k-mers of one chunk of the rolled upload
+UPLOAD_QUERIES = host_buffers.ROLL_QUERIES
 # the CSR index of the lookup path: the reference's default modulo, and
 # the get_batched batch and its sample checked against a join
 REF_MODULO = 452_930_477
@@ -762,6 +775,67 @@ def time_kernels(dev, card, state, k) -> dict:
             "packed_lookup": {"max_abs_err": k2_err, "ms": k2_ms,
                               "plain_ms": k2_plain, **b2,
                               "library_ms": None}}
+
+
+def upload_path(dev, card, read_kmers, n=UPLOAD_QUERIES) -> dict:
+    """One chunk of the rolled upload at the staging ring's size: the first
+    ``n`` read k-mers on the host, their rolled form (native), its copy to
+    the card and K9's decode of it there. Returns each of them."""
+    queries = first_queries(read_kmers, n).cpu()
+    room = torch.empty(host_buffers.ROLL_BYTES, dtype=torch.uint8)
+    form = rolled.encode(queries, room)
+    if form is None:
+        raise AssertionError(f"{queries.shape[0]} read k-mers did not take "
+                             "the rolled form")
+    device_form = room[:form.nbytes].to(dev)
+    out = torch.empty(form.n, dtype=torch.int64, device=dev)
+    rolled.decode(form, device_form, out)
+    print(f"upload path: {form.n} read k-mers in {form.nbytes} bytes of "
+          f"rolled form ({form.n_anchors} anchors, {form.w} digits a "
+          f"hash) against {8 * form.n} raw [{card}]", flush=True)
+    return dict(queries=queries, form=form, device_form=device_form, out=out)
+
+
+def _decode_twin(form, device_form) -> torch.Tensor:
+    out = torch.empty(form.n, dtype=torch.int64, device=device_form.device)
+    rolled.decode_plain(form, device_form, out)
+    return out
+
+
+def check_upload(up) -> dict:
+    """K9's output against its plain twin's on the same form and against
+    the read k-mers that were encoded (bit-exact); the kernels line's error
+    field."""
+    err = max(assert_equal(up["out"], _decode_twin(up["form"],
+                                                   up["device_form"]),
+                           "K9 against its twin"),
+              assert_equal(up["out"].cpu(), up["queries"],
+                           "K9 against the uploaded read k-mers"))
+    print(f"K9 == plain == the read k-mers (bit-exact) on {up['form'].n} "
+          "queries", flush=True)
+    return {"rolled_decode": {"max_abs_err": err}}
+
+
+def time_upload(dev, card, up, reps=10) -> dict:
+    """K9 against its twin on the upload path's form, each timed output
+    compared; its bound the form read once and 8 bytes a query written."""
+    form, device_form = up["form"], up["device_form"]
+
+    def kernel():
+        out = torch.empty(form.n, dtype=torch.int64, device=dev)
+        rolled.decode(form, device_form, out)
+        return out
+
+    ms, plain_ms, raw, err = time_pair(
+        dev, kernel, lambda: _decode_twin(form, device_form), reps,
+        "K9 timed on a chunk of read k-mers")
+    b = bound(nbytes=form.nbytes + 8 * form.n)
+    print(f"timing K9 rolled_decode, {form.n} queries from {form.nbytes} "
+          f"bytes: kernel {ms:.6f} ms ({form.n / ms / 1e6:.3f} G queries/s), "
+          f"plain {plain_ms:.6f} ms, bound {b['bound_ms']:.6f} ms, outputs "
+          f"equal; kernel,kernel,plain,plain = {raw} [{card}]", flush=True)
+    return {"rolled_decode": {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, **b, "library_ms": None}}
 
 
 def check_k3(dev, n_random: int, gen) -> int:
@@ -2333,8 +2407,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "library_ms")
 
 
-def kernel_entries(launches, hash_launches, lookup_launches, errs,
-                   timed, later_paths=None) -> list:
+def kernel_entries(launches, hash_launches, lookup_launches,
+                   upload_launches, errs, timed, later_paths=None) -> list:
     """The entries of the ``kernels`` line: every kernel with its source,
     the code it replaces, its launches on its own path, its error against
     the twin and its measured and bound times. A kernel that a later path
@@ -2349,7 +2423,8 @@ def kernel_entries(launches, hash_launches, lookup_launches, errs,
                "stream_sum": (K45_SOURCE, K5_REPLACES, hash_launches),
                "gather_loop": (K678_SOURCE, K6_REPLACES, lookup_launches),
                "rmw_loop": (K678_SOURCE, K7_REPLACES, lookup_launches),
-               "bcast_cmp": (K678_SOURCE, K8_REPLACES, lookup_launches)}
+               "bcast_cmp": (K678_SOURCE, K8_REPLACES, lookup_launches),
+               "rolled_decode": (K9_SOURCE, K9_REPLACES, upload_launches)}
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": path_launches[name],
                 **errs[name], **timed[name]}
@@ -2431,6 +2506,18 @@ def main(argv=None) -> int:
     for name, err in (("sliding_hash", k1_err), ("packed_lookup", k2_err)):
         errs[name] = {"max_abs_err": max(err,
                                          timed[name].pop("max_abs_err"))}
+
+    _kernels.reset_launch_counts()
+    up = upload_path(dev, card, state["read_kmers"])
+    upload_launches = dict(_kernels.launch_counts)
+    print(f"upload path launches {upload_launches} [{card}]", flush=True)
+    require_launches(upload_launches, UPLOAD_KERNELS, "upload path")
+    errs.update(check_upload(up))
+    timed.update(time_upload(dev, card, up))
+    errs["rolled_decode"]["max_abs_err"] = max(
+        errs["rolled_decode"]["max_abs_err"],
+        timed["rolled_decode"].pop("max_abs_err"))
+    del up
 
     check_k3(dev, 1 << 26, gen)
     _kernels.reset_launch_counts()
@@ -2542,8 +2629,8 @@ def main(argv=None) -> int:
         errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], sb[key])
     del built, sb
 
-    kernels = kernel_entries(launches, hash_launches, lookup_launches, errs,
-                             timed, {"build": build_launches,
+    kernels = kernel_entries(launches, hash_launches, lookup_launches,
+                             upload_launches, errs, timed, {"build": build_launches,
                                      "signature": signature_launches,
                                      "sharded": sharded_launches,
                                      "sharded_build": sharded_build_launches})

@@ -1,6 +1,7 @@
 """ctypes loader for the native host library (csrc/host/gki.cpp and
-walker.cpp, byte copies of the JAX package's native sources): the port of
-graph_kmer_index_tpu/native/__init__.py.
+walker.cpp, byte copies of the JAX package's native sources, and the
+port's own rolled.cpp, the host half of the staging ring's rolled upload):
+the port of graph_kmer_index_tpu/native/__init__.py.
 
 Compiles lazily with g++ on first use into
 ``graph_kmer_index_tpu_torch/build/``; all call sites fall back to the
@@ -32,7 +33,8 @@ from .utils.hugepages import hp_empty, hp_zeros
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_HERE, "csrc", "host", "gki.cpp"),
-         os.path.join(_HERE, "csrc", "host", "walker.cpp")]
+         os.path.join(_HERE, "csrc", "host", "walker.cpp"),
+         os.path.join(_HERE, "csrc", "host", "rolled.cpp")]
 _BUILD_DIR = os.path.join(_HERE, "build")
 _FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
           "-pthread"]
@@ -198,6 +200,10 @@ def get_lib():
             p(ctypes.c_uint64), i64, p(ctypes.c_uint64),
             p(ctypes.c_uint64), p(ctypes.c_uint32), u64,
             p(ctypes.c_int64), i64]
+        lib.gki_rolled_encode.restype = i64
+        lib.gki_rolled_encode.argtypes = [
+            ctypes.c_void_p, i64, ctypes.c_void_p, i64, i32,
+            p(ctypes.c_int64)]
         lib.gki_packed_has_kmers.restype = None
         lib.gki_packed_has_kmers.argtypes = [
             p(ctypes.c_uint64), i64, p(ctypes.c_uint64),

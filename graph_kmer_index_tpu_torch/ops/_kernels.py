@@ -30,14 +30,14 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("sliding_hash.cu", "packed_lookup.cu", "sliding_pack.cu",
-           "stream.cu", "probes.cu")
+           "stream.cu", "probes.cu", "rolled_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 launch_counts = {"sliding_hash": 0, "packed_lookup": 0,
                  "sliding_pack_p16": 0, "sliding_pack_p8": 0,
                  "stream_copy": 0, "stream_sum": 0, "gather_loop": 0,
-                 "rmw_loop": 0, "bcast_cmp": 0}
+                 "rmw_loop": 0, "bcast_cmp": 0, "rolled_decode": 0}
 
 
 def reset_launch_counts() -> None:
@@ -124,6 +124,9 @@ def library() -> ctypes.CDLL:
     lib.gki_bcast_cmp.argtypes = [ptr, ptr, i64, ptr, ptr, ptr,
                                   ctypes.c_int, ptr, ptr, ptr]
     lib.gki_bcast_cmp.restype = ctypes.c_int
+    lib.gki_rolled_decode.argtypes = [ptr, i64, ctypes.c_int, i64, i64, ptr,
+                                      ptr]
+    lib.gki_rolled_decode.restype = ctypes.c_int
     return lib
 
 

@@ -44,6 +44,18 @@ block: where no freed block's copy has completed it pins a new one and
 keeps it, so its pinned memory would grow with whatever the stream has
 queued ahead of the copies, up to the whole query. The ring holds its
 blocks and no more, and waits for the next one in turn instead.
+
+Where a chunk's queries roll one base from one to the next, as the k-mers
+of each read strand do, the ring sends it in the rolled form
+(``ops/rolled.py``): the host's threads scan up to :data:`ROLL_QUERIES`
+queries into a block as a 2-bit digit a query and the whole hash of each
+query that does not roll (an anchor), the form goes to one buffer of
+:data:`ROLL_BYTES` on the card, and a kernel writes the hashes into the
+result. The host then reads each hash once and writes about a 21st of
+it, and the link carries that 21st. The native encoder probes each
+chunk's first queries and leaves a chunk that does not roll (distinct or
+sorted k-mers, any array in no read order) to the plain copy, so such
+queries pay one probe a chunk.
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ import numpy as np
 import torch
 
 from ..utils import profiling
+from . import rolled
 
 # free blocks the pool keeps at most
 MAX_FREE = 2
@@ -67,6 +80,14 @@ MAX_FREE = 2
 # the pace and a block is free again before its turn comes
 STAGE_BLOCKS = 4
 STAGE_BYTES = 16 << 20
+# the queries a chunk in the rolled form covers at most, and the room of
+# its form: on the host in a block, on the card in the ring's one buffer
+# (2^23 queries take 2 MiB of digits; the rest holds 16-byte anchors up to
+# one query in 13, beyond the one in 16 that the encoder's probe allows).
+# The host of an H100 80GB HBM3 takes 45-60 us to set its 8 threads on a
+# chunk, so chunks are large
+ROLL_QUERIES = 1 << 23
+ROLL_BYTES = 12 << 20
 # a mapping of at least this many bytes is a whole number of them: the
 # CUDA pins 2.12 GB so in 0.34-0.42 s, at the exact size in 1.16-1.21 s
 # (the host of an H100 80GB HBM3)
@@ -205,9 +226,14 @@ class StagingRing:
         self.device = torch.device(device)
         self.n_blocks = STAGE_BLOCKS
         self.chunk = STAGE_BYTES // 8  # int64 elements a block holds
+        self.roll_queries = ROLL_QUERIES
+        self.roll_bytes = min(ROLL_BYTES, STAGE_BYTES)
         self._blocks: list[_Block] = []
         self._staging: list[torch.Tensor] = []
+        self._forms: list[torch.Tensor] = []  # the blocks as bytes
         self._events: list = []
+        self._rolled: torch.Tensor | None = None  # the form on the device
+        self._rolled_stream = None
         self._next = 0
         self._lock = threading.Lock()
 
@@ -223,39 +249,73 @@ class StagingRing:
                 self._blocks.append(block)
                 self._staging.append(torch.from_numpy(np.frombuffer(
                     block.memory, np.int64, count=self.chunk)))
+                self._forms.append(torch.from_numpy(np.frombuffer(
+                    block.memory, np.uint8, count=self.roll_bytes)))
                 self._events.append(self._event())
 
     def upload(self, array) -> torch.Tensor:
         """``array`` (see :func:`_host_int64`) as an int64 tensor of its
-        shape on the ring's device. Its elements go in order, in chunks of
-        a block: wait for the event of the block next in turn (its last
-        copy may still be in flight, from this call or an earlier one),
-        copy the chunk into it on the host, copy it on to its place in the
-        result on the device's current stream without waiting, and record
-        the block's event. Returns without waiting for the card: work on
-        the current stream follows the copies in order."""
+        shape on the ring's device. Its elements go in order, in chunks:
+        wait for the event of the block next in turn (its last copy may
+        still be in flight, from this call or an earlier one), fill the
+        block on the host with the chunk's rolled form where the encoder
+        takes it, else with the chunk itself, copy that on to the device
+        on its current stream without waiting, record the block's event,
+        and decode a rolled form into the chunk's place in the result.
+        Returns without waiting for the card: work on the current stream
+        follows the copies in order."""
         host = _host_int64(array)
         flat = host.reshape(-1)
         n = flat.shape[0]
         out = torch.empty(n, dtype=torch.int64, device=self.device)
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
+        # the encoder reads int64 hashes one after another in memory
+        roll = flat.dtype == torch.int64 and flat.is_contiguous()
         with self._lock:
             if not self._blocks:
                 self._make_blocks()
-            for start in range(0, n, self.chunk):
-                m = min(self.chunk, n - start)
+            start = 0
+            while start < n:
                 k = self._next
                 self._next = (k + 1) % self.n_blocks
-                event, block = self._events[k], self._staging[k][:m]
+                event = self._events[k]
                 if not event.query():
                     profiling.count("upload.ring_waits")
                     event.synchronize()
-                block.copy_(flat[start:start + m])
-                out[start:start + m].copy_(block, non_blocking=True)
-                event.record(stream)
-        profiling.count("upload.staged_bytes", n * 8)
+                form = (rolled.encode(flat[start:start + self.roll_queries],
+                                      self._forms[k]) if roll else None)
+                if form is None:
+                    m = min(self.chunk, n - start)
+                    block = self._staging[k][:m]
+                    block.copy_(flat[start:start + m])
+                    out[start:start + m].copy_(block, non_blocking=True)
+                    event.record(stream)
+                    profiling.count("upload.staged_bytes", m * 8)
+                else:
+                    m = form.n
+                    device_form = self._device_form(stream)
+                    device_form[:form.nbytes].copy_(
+                        self._forms[k][:form.nbytes], non_blocking=True)
+                    event.record(stream)
+                    rolled.decode(form, device_form, out[start:start + m])
+                    profiling.count("upload.rolled", m - form.n_anchors)
+                    profiling.count("upload.anchors", form.n_anchors)
+                    profiling.count("upload.rolled_bytes", form.nbytes)
+                start += m
         return out.view(host.shape)
+
+    def _device_form(self, stream) -> torch.Tensor:
+        """The ring's buffer for a rolled form on its device, made at first
+        use. Its copies and decodes follow each other on one stream; a
+        chunk on another stream first waits for the last decode."""
+        if self._rolled is None:
+            self._rolled = torch.empty(self.roll_bytes, dtype=torch.uint8,
+                                       device=self.device)
+        elif stream is not None and stream != self._rolled_stream:
+            stream.wait_stream(self._rolled_stream)
+        self._rolled_stream = stream
+        return self._rolled
 
 
 _RINGS: dict[torch.device, StagingRing] = {}

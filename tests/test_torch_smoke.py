@@ -55,6 +55,39 @@ def test_smoke_phases_on_cpu(tmp_path, capsys):
     assert state["tables"].max_sz > 256
 
 
+def test_smoke_upload_phase_on_cpu(tmp_path, capsys, monkeypatch):
+    """The upload path on the main path's read k-mers: the rolled form of
+    one chunk, decoded by K9's plain twin (the CPU's route), equals the
+    read k-mers; a fault in the decoded queries is caught; the bound
+    counts the form read once and 8 bytes a query written."""
+    cs = _smoke()
+    dev = torch.device("cpu")
+    args = cs.parse_args(["--genome-bases", "60000", "--reads", "400"])
+    state = cs.main_path(dev, "CPU", args, tmp_path)
+    up = cs.upload_path(dev, "CPU", state["read_kmers"], n=40_000)
+    form = up["form"]
+    assert form.n == 40_000 and form.w == cs.K
+    # one anchor a read strand of 120 k-mers, and the chunk's first
+    assert form.n_anchors <= form.n // 120 + 2
+    assert form.nbytes < 8 * form.n // 15
+    assert cs.check_upload(up) == {"rolled_decode": {"max_abs_err": 0}}
+
+    def host_pair(dev, kernel, plain, reps, what, compare=cs.assert_equal):
+        return 1.0, 2.0, (1.0, 1.0, 2.0, 2.0), compare(kernel(), plain(),
+                                                        what)
+
+    monkeypatch.setattr(cs, "time_pair", host_pair)
+    timed = cs.time_upload(dev, "CPU", up)["rolled_decode"]
+    assert timed["max_abs_err"] == 0 and timed["ms"] == 1.0
+    assert timed == {**timed, **cs.bound(nbytes=form.nbytes + 8 * form.n)}
+    up["out"][12_345] ^= 4
+    with pytest.raises(AssertionError, match="K9 against its twin"):
+        cs.check_upload(up)
+    out = capsys.readouterr().out
+    assert "K9 == plain == the read k-mers (bit-exact) on 40000" in out
+    assert "timing K9 rolled_decode, 40000 queries" in out
+
+
 def test_smoke_hashing_phase_on_cpu(capsys):
     cs = _smoke()
     dev = torch.device("cpu")
@@ -316,7 +349,7 @@ def test_smoke_kernel_entries_add_the_build_paths_launches():
     signature = dict.fromkeys(_kernels.launch_counts, 0)
     signature.update(sliding_hash=3, packed_lookup=2)
     by_name = {e["name"]: e for e in cs.kernel_entries(
-        launches, launches, launches, errs, timed,
+        launches, launches, launches, launches, errs, timed,
         {"build": build, "signature": signature})}
     assert by_name["sliding_hash"]["launches"] == 17
     assert by_name["sliding_hash"]["launches_by_path"] == {
@@ -436,7 +469,8 @@ def test_smoke_join_applies_the_caps(tmp_path):
 def test_smoke_requires_each_paths_kernels():
     cs = _smoke()
     assert (sorted(cs.READ_MAPPING_KERNELS + cs.HASHING_KERNELS
-                   + cs.LOOKUP_KERNELS) == sorted(_kernels.launch_counts))
+                   + cs.LOOKUP_KERNELS + cs.UPLOAD_KERNELS)
+            == sorted(_kernels.launch_counts))
     launches = dict.fromkeys(_kernels.launch_counts, 1)
     cs.require_launches(launches, cs.HASHING_KERNELS, "hashing path")
     launches["stream_sum"] = 0
@@ -457,7 +491,8 @@ def test_smoke_bounds_and_kernel_entries():
                     **cs.bound(nbytes=1e6)} for name in launches}
     for name in ("gather_loop", "rmw_loop"):
         timed[name].update(warm_ms=0.5, host_call_ms=0.25, events_ms=0.3)
-    entries = cs.kernel_entries(launches, launches, launches, errs, timed)
+    entries = cs.kernel_entries(launches, launches, launches, launches, errs,
+                                timed)
     assert [e["name"] for e in entries] == list(_kernels.launch_counts)
     by_name = {e["name"]: e for e in entries}
     for name in ("gather_loop", "rmw_loop"):
@@ -469,7 +504,8 @@ def test_smoke_bounds_and_kernel_entries():
         assert (ROOT / entry["source"]).exists()
     del timed["stream_copy"]["bound_ms"]
     with pytest.raises(AssertionError, match="stream_copy lacks"):
-        cs.kernel_entries(launches, launches, launches, errs, timed)
+        cs.kernel_entries(launches, launches, launches, launches, errs,
+                                timed)
 
 
 def test_smoke_k2_bytes_counts_the_scanned_rows(tmp_path):
