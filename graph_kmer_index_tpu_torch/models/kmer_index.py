@@ -91,21 +91,32 @@ def frequencies_by_distinct_ref_offsets(kmers: torch.Tensor,
     """frequency[row] = the number of DISTINCT ref offsets among the rows
     of its k-mer, wrapped to 16 bits as the JAX package's uint16 column
     (JAX _frequencies_by_distinct_ref_offsets). Its lexsort by (kmer,
-    ref_offset) is two stable sorts here. int32 values in [0, 2^16)."""
+    ref_offset) is two stable sorts here; each row-sized temporary goes
+    as soon as no later step reads it. int32 values in [0, 2^16)."""
     n = kmers.shape[0]
+    dev = kmers.device
     if n == 0:
-        return torch.zeros(0, dtype=torch.int32, device=kmers.device)
+        return torch.zeros(0, dtype=torch.int32, device=dev)
     by_offset = torch.sort(ref_offsets, stable=True).indices
     order = by_offset[torch.sort(kmers[by_offset], stable=True).indices]
-    km, ro = kmers[order], ref_offsets[order]
-    new_kmer = torch.ones(n, dtype=torch.bool, device=kmers.device)
+    del by_offset
+    km = kmers[order]
+    new_kmer = torch.ones(n, dtype=torch.bool, device=dev)
     new_kmer[1:] = km[1:] != km[:-1]
+    del km
+    ro = ref_offsets[order]
     new_pair = new_kmer.clone()
     new_pair[1:] |= ro[1:] != ro[:-1]
-    seg = torch.cumsum(new_kmer, 0) - 1
+    del ro
+    seg = torch.cumsum(new_kmer, 0).sub_(1)
+    del new_kmer
     per_kmer = torch.bincount(seg[new_pair], minlength=int(seg[-1]) + 1)
-    freqs = torch.empty(n, dtype=torch.int32, device=kmers.device)
-    freqs[order] = (per_kmer[seg] & 0xFFFF).to(torch.int32)
+    del new_pair
+    values = per_kmer[seg]
+    del seg, per_kmer
+    values &= 0xFFFF
+    freqs = torch.empty(n, dtype=torch.int32, device=dev)
+    freqs[order] = values.to(torch.int32)
     return freqs
 
 
@@ -245,11 +256,15 @@ class KmerIndex:
             cols = [km, as_device_tensor(nodes, torch.int64, dev),
                     as_device_tensor(ref_offsets, torch.int64, dev),
                     as_device_tensor(allele_frequencies, None, dev)]
-            starts, sizes, (km, nd, ro, af), _ = build_modulo_layout(
+            starts, sizes, (km, nd, ro, af), sorting = build_modulo_layout(
                 km % int(modulo), int(modulo), cols)
             index = cls(km, nd, modulo, ref_offsets=ro,
                         allele_frequencies=af, hashes_to_index=starts,
                         n_kmers=sizes, dtypes=dtypes)
+            # the unsorted int64 copies made here and the permutation go
+            # before the frequencies' two sorts, which set the build's
+            # peak on the card
+            del cols, sorting, km, nd, ro, af
             index.set_frequencies(skip_frequencies)
             return index
 

@@ -64,6 +64,11 @@ _U32 = 0xFFFFFFFF
 # ultra-deep resolution expands (unique query x bucket row) pairs in
 # chunks of at most this many rows
 _ULTRA_ROWS_PER_CHUNK = 1 << 24
+# the CSR scan of map/has goes by depth through this many rows of each
+# bucket; the queries of deeper buckets then compare the rest once per
+# distinct k-mer, so that a deep bucket (the poly-A run's, hundreds of
+# rows) costs no pass, and no wait for the card, per row
+CSR_DEPTH_PASSES = 8
 
 # query classes of packed_decode_plain (0: final, answered by the record
 # lanes)
@@ -210,28 +215,112 @@ def _bucket_meta(tables: PackedTables, q: torch.Tensor, bucket_base=0):
     return _lane(g, 6), sz
 
 
+def _bucket_hit_passes(q: torch.Tensor, table_kmers: torch.Tensor,
+                       start: torch.Tensor, size: torch.Tensor,
+                       counted: bool = False, depth: int | None = None,
+                       rest: list | None = None):
+    """The rows of each query's range [start, start + size) that hold the
+    query k-mer, scanned by depth: pass j keeps only the queries whose
+    range is longer than j. Yields each pass's (query index, matched row)
+    pairs, so that a caller can reduce them pass by pass instead of
+    holding every pass's hits at once.
+
+    ``depth``: stop after that many passes and append the queries left to
+    the list ``rest``, as (query index, k-mer, next row, rows left).
+    ``counted``: add the CSR counters (profiling.CSR_COUNTERS) while a
+    session records, from shapes that each pass's boolean index has
+    already brought to the host."""
+    ids = torch.nonzero(size > 0).flatten()
+    q, start, size = q[ids], start[ids], size[ids]
+    counted = counted and profiling.active()
+    if counted:
+        profiling.count("csr.queries", ids.shape[0])
+    j = 0
+    while q.shape[0]:
+        if j == depth:
+            rest.append((ids, q, start + j, size - j))
+            return
+        rows = start + j
+        # one nonzero (one wait for the card) per selection, then gathers
+        sel = torch.nonzero(table_kmers[rows] == q).flatten()
+        hit_ids, hit_rows = ids[sel], rows[sel]
+        if counted:
+            profiling.count("csr.passes")
+            profiling.count("csr.scan_rows", q.shape[0])
+            profiling.count("csr.hits", hit_ids.shape[0])
+        yield hit_ids, hit_rows
+        j += 1
+        sel = torch.nonzero(size > j).flatten()
+        q, start, size, ids = q[sel], start[sel], size[sel], ids[sel]
+
+
+def _distinct_hits(ids, q, start, size, table_kmers, counted=False):
+    """The rows of each query's range [start, start + size) that hold the
+    query k-mer, compared once per distinct k-mer (the queries of one
+    k-mer share its bucket, and so its range), as the packed path resolves
+    its ultra buckets. Returns (ids, inverse, mult, owner, rows): the
+    queries' indices, each query's distinct k-mer, the queries of each
+    distinct k-mer and the (distinct k-mer, matched row) pairs.
+    ``counted``: as :func:`_bucket_hit_passes`, the distinct k-mers' rows
+    counted as one pass."""
+    uniq, inverse, mult = torch.unique(q, return_inverse=True,
+                                       return_counts=True)
+    ustart, usize = torch.empty_like(uniq), torch.empty_like(uniq)
+    ustart[inverse] = start
+    usize[inverse] = size
+    owner, rows, compared = _range_matches(table_kmers, uniq, ustart, usize)
+    if counted and profiling.active():
+        profiling.count("csr.passes")
+        profiling.count("csr.scan_rows", compared)
+        profiling.count("csr.hits", owner.shape[0])
+    return ids, inverse, mult, owner, rows
+
+
+def _range_matches(table_kmers, q, start, size):
+    """(query index, matched row) pairs of every row of each range [start,
+    start + size) that holds its query k-mer, each (query, row) pair
+    expanded, in chunks of about _ULTRA_ROWS_PER_CHUNK rows; and the rows
+    compared."""
+    ends = torch.cumsum(size, 0)
+    total = int(ends[-1]) if ends.numel() else 0
+    if not total:
+        empty = torch.zeros(0, dtype=torch.int64, device=q.device)
+        return empty, empty.clone(), 0
+    cuts = [0, q.shape[0]]
+    if total > _ULTRA_ROWS_PER_CHUNK:
+        marks = torch.arange(_ULTRA_ROWS_PER_CHUNK, total,
+                             _ULTRA_ROWS_PER_CHUNK, device=q.device)
+        cuts = sorted({*cuts, *torch.searchsorted(ends, marks,
+                                                  right=True).tolist()})
+    row_ends = [0] + ends[torch.tensor(cuts[1:], device=q.device)
+                          - 1].tolist()
+    owners, rows = [], []
+    for lo, hi, r0, r1 in zip(cuts, cuts[1:], row_ends, row_ends[1:]):
+        z, n = size[lo:hi], r1 - r0
+        owner = torch.repeat_interleave(
+            torch.arange(lo, hi, device=q.device), z, output_size=n)
+        first = torch.cumsum(z, 0) - z
+        row = (torch.repeat_interleave(start[lo:hi] - first, z,
+                                       output_size=n)
+               + torch.arange(n, device=q.device))
+        sel = torch.nonzero(table_kmers[row] == q[owner]).flatten()
+        owners.append(owner[sel])
+        rows.append(row[sel])
+    return torch.cat(owners), torch.cat(rows), total
+
+
 def _bucket_hits_from_ranges(q: torch.Tensor, table_kmers: torch.Tensor,
                              start: torch.Tensor, size: torch.Tensor):
     """Every row of each query's range [start, start + size) that holds
-    the query k-mer, scanned by depth: pass j keeps only the queries whose
-    range is longer than j. Returns (query index, matched row) pairs,
-    depth by depth (JAX _bucket_hits_from_ranges without its dense
-    (queries, max_scan) matrix)."""
-    ids = torch.nonzero(size > 0).flatten()
-    q, start, size = q[ids], start[ids], size[ids]
-    hit_ids, hit_rows = [], []
-    j = 0
-    while q.shape[0]:
-        rows = start + j
-        m = table_kmers[rows] == q
-        hit_ids.append(ids[m])
-        hit_rows.append(rows[m])
-        j += 1
-        keep = size > j
-        q, start, size, ids = q[keep], start[keep], size[keep], ids[keep]
-    if not hit_ids:
-        return ids, ids.clone()
-    return torch.cat(hit_ids), torch.cat(hit_rows)
+    the query k-mer (:func:`_bucket_hit_passes`). Returns (query index,
+    matched row) pairs, depth by depth (JAX _bucket_hits_from_ranges
+    without its dense (queries, max_scan) matrix)."""
+    passes = list(_bucket_hit_passes(q, table_kmers, start, size))
+    if not passes:
+        empty = torch.zeros(0, dtype=torch.int64, device=q.device)
+        return empty, empty.clone()
+    return (torch.cat([ids for ids, _ in passes]),
+            torch.cat([rows for _, rows in passes]))
 
 
 def _scan_deep(tables: PackedTables, q: torch.Tensor, bucket_base=0):
@@ -246,30 +335,9 @@ def _ultra_matches(tables: PackedTables, uniq: torch.Tensor, bucket_base=0):
     """(unique index, matched row) pairs for unique ultra-deep query
     k-mers: every row of each one's bucket that holds it (JAX
     _ultra_rows, vectorised over the uniques in bounded chunks)."""
-    start, sz = _bucket_meta(tables, uniq, bucket_base)
-    ends = torch.cumsum(sz, 0).tolist()
-    hit_ids, hit_rows = [], []
-    lo = 0
-    while lo < len(ends):
-        base = ends[lo - 1] if lo else 0
-        hi = lo + 1
-        while hi < len(ends) and ends[hi] - base <= _ULTRA_ROWS_PER_CHUNK:
-            hi += 1
-        s, z = start[lo:hi], sz[lo:hi]
-        total = ends[hi - 1] - base
-        owner = torch.repeat_interleave(
-            torch.arange(lo, hi, device=uniq.device), z, output_size=total)
-        first = torch.cumsum(z, 0) - z
-        rows = (torch.repeat_interleave(s - first, z, output_size=total)
-                + torch.arange(total, device=uniq.device))
-        m = tables.ks[rows] == uniq[owner]
-        hit_ids.append(owner[m])
-        hit_rows.append(rows[m])
-        lo = hi
-    if not hit_ids:
-        empty = torch.zeros(0, dtype=torch.int64, device=uniq.device)
-        return empty, empty
-    return torch.cat(hit_ids), torch.cat(hit_rows)
+    ids, rows, _ = _range_matches(tables.ks, uniq,
+                                  *_bucket_meta(tables, uniq, bucket_base))
+    return ids, rows
 
 
 def _add_node_hits(counts, nodes, weights=None):
@@ -483,25 +551,57 @@ def _bucket_hits(queries, table_kmers, starts_tbl, sizes_tbl, modulo: int):
     return _bucket_hits_from_ranges(queries, table_kmers, start, size)
 
 
+def _csr_hit_passes(queries, table_kmers, starts_tbl, sizes_tbl,
+                    modulo: int, rest: list):
+    """The CSR scan's passes by depth through the first CSR_DEPTH_PASSES
+    rows of each bucket, counted (profiling.CSR_COUNTERS); the queries
+    left go to ``rest`` (:func:`_bucket_hit_passes`)."""
+    return _bucket_hit_passes(
+        queries, table_kmers,
+        *_ranges_from_tables(queries, starts_tbl, sizes_tbl, modulo),
+        counted=True, depth=CSR_DEPTH_PASSES, rest=rest)
+
+
 def _node_counts(queries, table_kmers, table_nodes, starts_tbl, sizes_tbl,
                  modulo: int, n_nodes: int) -> torch.Tensor:
     """int64 hit counts per node (nodes >= n_nodes dropped) by the CSR
-    scan."""
-    _ids, rows = _bucket_hits(queries, table_kmers, starts_tbl, sizes_tbl,
-                              modulo)
-    counts = torch.zeros(n_nodes, dtype=torch.int64, device=queries.device)
-    _add_node_hits(counts, table_nodes[rows])
-    return counts
+    scan, added pass by pass, then once per distinct k-mer of the deeper
+    buckets, weighted by its queries. A dropped node is added to a spare
+    last slot, so that no pass waits for the card to mask its nodes."""
+    counts = torch.zeros(n_nodes + 1, dtype=torch.int64,
+                         device=queries.device)
+
+    def add(rows, weights):
+        counts.index_add_(0, table_nodes[rows].clamp(max=n_nodes), weights)
+
+    rest = []
+    for _ids, rows in _csr_hit_passes(queries, table_kmers, starts_tbl,
+                                      sizes_tbl, modulo, rest):
+        add(rows, torch.ones_like(rows))
+    for left in rest:
+        _ids, _inverse, mult, owner, rows = _distinct_hits(
+            *left, table_kmers, counted=True)
+        add(rows, mult[owner])
+    return counts[:n_nodes]
 
 
 def _has_kmers(queries, table_kmers, starts_tbl, sizes_tbl,
                modulo: int) -> torch.Tensor:
-    """bool membership per query by the CSR scan."""
-    ids, _rows = _bucket_hits(queries, table_kmers, starts_tbl, sizes_tbl,
-                              modulo)
+    """bool membership per query by the CSR scan, pass by pass, then once
+    per distinct k-mer of the deeper buckets."""
     hit = torch.zeros(queries.shape[0], dtype=torch.bool,
                       device=queries.device)
-    hit[ids] = True
+    rest = []
+    for ids, _rows in _csr_hit_passes(queries, table_kmers, starts_tbl,
+                                      sizes_tbl, modulo, rest):
+        hit[ids] = True
+    for left in rest:
+        ids, inverse, mult, owner, _rows = _distinct_hits(
+            *left, table_kmers, counted=True)
+        found = torch.zeros(mult.shape[0], dtype=torch.bool,
+                            device=queries.device)
+        found[owner] = True
+        hit[ids] |= found[inverse]
     return hit
 
 
@@ -692,17 +792,20 @@ class DeviceKmerIndex:
         int64 query tensor on this index's device."""
         t = self.packed()
         if t is None:
-            return _node_counts(queries, self.table_kmers, self.table_nodes,
-                                self.starts_tbl, self.sizes_tbl, self.modulo,
-                                n_nodes)
+            with profiling.span("lookup.csr"):
+                return _node_counts(queries, self.table_kmers,
+                                    self.table_nodes, self.starts_tbl,
+                                    self.sizes_tbl, self.modulo, n_nodes)
         return packed_lookup(t, queries, queries.shape[0], n_nodes)
 
     def has_kmers(self, queries: torch.Tensor) -> torch.Tensor:
         """bool membership per query of an int64 query tensor."""
         t = self.packed()
         if t is None:
-            return _has_kmers(queries, self.table_kmers, self.starts_tbl,
-                              self.sizes_tbl, self.modulo)
+            with profiling.span("lookup.csr"):
+                return _has_kmers(queries, self.table_kmers,
+                                  self.starts_tbl, self.sizes_tbl,
+                                  self.modulo)
         return packed_lookup(t, queries, queries.shape[0])
 
     def map_read_kmers(self, read_kmers, n_nodes: int) -> torch.Tensor:

@@ -16,6 +16,10 @@ one above it:
                                rolled where they roll)
       lookup.k2                ops.lookup.packed_lookup on CUDA: the counts'
                                zeroing and K2's launch (host time only)
+      lookup.csr               ops.lookup.DeviceKmerIndex.map_kmers /
+                               has_kmers where the packed table exceeds its
+                               budget: the CSR bucket scan by depth, which
+                               waits for the device at every pass
       kmer_index.counts_to_host  the wait for K2 and the counts' copy
     read_kmers.hash_fasta_file   read_kmers.hash_fasta_file, the whole call
       read_kmers.read          the next whole-record block of the file
@@ -55,7 +59,15 @@ form sent to the card). The pooled find adds, per call of
 delivered), ``find.walk_us`` (microseconds the workers spent walking
 them, which each chunk returns with its result) and
 ``find.first_result_us`` (microseconds from the call to the first
-result: the workers' start-up and one chunk's walk).
+result: the workers' start-up and one chunk's walk). The CSR bucket scan
+of ``map_kmers``/``has_kmers`` (span ``lookup.csr``) adds ``csr.queries``
+(queries whose bucket holds a row), ``csr.passes`` (passes by depth,
+each two ``nonzero`` calls and so two waits for the device, and one pass
+more where queries are left past ``ops.lookup.CSR_DEPTH_PASSES`` rows and
+compare the rest of their buckets once per distinct k-mer),
+``csr.scan_rows`` (rows compared: the sum of each pass's queries, and the
+distinct k-mers' rows) and ``csr.hits`` (compared rows that matched), all
+from shapes the passes have brought to the host.
 """
 from __future__ import annotations
 
@@ -69,10 +81,12 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 K2_COUNTERS = ("k2.queries", "k2.pending", "k2.scan_rows", "k2.scan_matches")
+CSR_COUNTERS = ("csr.queries", "csr.passes", "csr.scan_rows", "csr.hits")
 HOST_COUNTERS = ("host_counts.reused", "host_counts.allocated",
                  "find.chunks", "find.walk_us", "find.first_result_us",
                  "upload.staged_bytes", "upload.ring_waits",
-                 "upload.rolled", "upload.anchors", "upload.rolled_bytes")
+                 "upload.rolled", "upload.anchors", "upload.rolled_bytes",
+                 *CSR_COUNTERS)
 # copies of the counters that K2's blocks add to in turn
 # (csrc/packed_lookup.cu: kStatStripes), so that no one address takes
 # every block's atomics
